@@ -1,17 +1,15 @@
 #!/usr/bin/env python
 """One-process A/B of the rebin cadence at the headline geometry.
 
-The r3 queue probe recorded cadence 11 at 947.0M p-s/s vs the shipped
-cadence-10 headline's 941.4M (bench/results_tpu.jsonl), but cross-session
-numbers differ ~2x, so the ship decision needs both cadences timed
-back-to-back in ONE process (same discipline as bench/ab_rebin.py /
-bench/ab_grid.py). Each record carries the stale-slack drift margin
+Cadences are timed back-to-back in ONE process on one device, so the
+comparison needs no cross-process numbers (same discipline as
+bench/ab_rebin.py / bench/ab_grid.py). Each record carries the stale-slack drift margin
 (cadence * max|v| * dt vs (bin_size - cutoff)/2) so the safety headroom of
 the winner is recorded alongside the speed.
 
 Usage:
     python bench/ab_cadence.py                         # 10 vs 11 at 20.97M
-    python bench/ab_cadence.py --cadences 8,10,11,12 --out bench/results_tpu.jsonl
+    python bench/ab_cadence.py --cadences 8,10,11,12 --out bench/results.jsonl
 """
 
 import argparse
@@ -44,7 +42,7 @@ def main(argv=None) -> int:
     from ppsim_tpu.initlib import init_particles
 
     if args.ndim == 3 and args.engine == "pallas":
-        args.engine = "pallas3d"
+        args.engine = "grid3d"  # the 3D family runs XLA ops only
 
     records = []
     for cad_s in args.cadences.split(","):

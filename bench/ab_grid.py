@@ -4,10 +4,9 @@ rebin cadence.
 
 The reference documents its own bin-size ablations (part1 PDF p.6 table:
 BIN_SIZE 0.01/0.02/0.05; part3 PDF Table 2: 2x bin size costs 1.5x) — this
-is the slab-grid analog. Relay throughput varies ~2x BETWEEN sessions, so
-variants are timed back-to-back in ONE process (the discipline that decided
-the symmetric kernel, the 3D axis rebin, and the 2D axes rebin). Prints one
-JSON line per variant.
+is the slab-grid analog. Variants are timed back-to-back in ONE process on
+one device (no cross-process comparison). Prints one JSON line per variant;
+bench/geom_fit.py refits the geometry cost model from its rows.
 
 Variant spec: comma-separated ``scale:cap:rebin`` triples, e.g.
 ``5:11:8,4:9:8,3:7:8,5:11:12``. If the initial lattice over-packs a
@@ -18,7 +17,7 @@ sweep.
 Usage:
     python bench/ab_grid.py -n 4194304 --repeats 3 \
         --variants 5:11:8,4:9:8,3:7:8,6:14:8,5:11:12 \
-        --out bench/results_tpu.jsonl
+        --out bench/results.jsonl
 """
 
 import argparse

@@ -1,25 +1,20 @@
 #!/usr/bin/env python
 """One-process A/B: slab-plane layout vs the sort/gather compact layout.
 
-BASELINE.md r3's useful-lane analysis leaves one frontier open: the slab
-kernels evaluate (occ/cap)^2 ~ 21% useful lanes, and per-BIN slot bounds
-(the only compaction vector lanes can't do) would recover ~3x — IF a
-compact, sorted, gather-based layout could feed the VPU at all. That
+The slab layout evaluates (occ/cap)^2 ~ 21% useful slot pairs; a
+compact, sorted, gather-based layout evaluates only real candidates. That
 layout exists in this repo (ops/binning.py + ops/forces.py, the `binned`
-engine: sort-rebinned compact bins, 3x3 stencil via gathers) and lost to
-the slab layout in round 1 — but the slab side has since gained the
-symmetric kernel, the axes rebin, and the geometry snap, so the r3
-verdict (#6) asks for one fresh data point per major kernel revision:
-time both layouts back-to-back in one process at n=4.2M.
+engine: sort-rebinned compact bins, 3x3 stencil via gathers), and a GPU
+gathers natively, so the question is open again per device: time both
+layouts back-to-back in one process at n=4.2M.
 
 The gather engine re-bins EVERY step (vecmp strategy), so its chunk
 quantum is 1; it runs fewer steps (same per-step contract, p-s/s is the
-comparable) and chunked so no single relay execution exceeds the ~1-min
-kill window.
+comparable).
 
 Usage:
     python bench/ab_layout.py                     # n=4.2M
-    python bench/ab_layout.py -n 1048576 --out bench/results_tpu.jsonl
+    python bench/ab_layout.py -n 1048576 --out bench/results.jsonl
 """
 
 import argparse

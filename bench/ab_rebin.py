@@ -1,16 +1,14 @@
 #!/usr/bin/env python
 """One-process A/B of the 2D rebin algorithms: dirs9 vs axes.
 
-Round-2/3 discipline: relay throughput varies ~2x BETWEEN sessions, so
-variants must be timed back-to-back in ONE process (the same way the
-symmetric step kernel and the 3D axis rebin were decided). Prints one
+Variants are timed back-to-back in ONE process on one device. Prints one
 JSON line per variant; the winner becomes the config default (and the
 loser is removed, per the 3D precedent — the unfactorized 27-direction
 rebin was deleted after its recorded ablation loss).
 
 Usage:
     python bench/ab_rebin.py                     # n=20.97M x 1000, best of 3
-    python bench/ab_rebin.py -n 4194304 --repeats 5 --out bench/results_tpu.jsonl
+    python bench/ab_rebin.py -n 4194304 --repeats 5 --out bench/results.jsonl
 """
 
 import argparse

@@ -6,23 +6,23 @@ cap) in ns per particle-step:
 
     cost = A * planes(cap)/occ * pad  +  B * cap/occ * pad  +  D_capture
 
-where planes(cap) = cap(cap-1)/2 + 4 cap^2 is the symmetric step kernel's
-pair-plane count per bin (ops/pallas_grid.py), occ = mean bin occupancy
-n/m^2, and pad = padded/physical plane-area ratio (rows pad to 8 sublanes,
-cols to 128 lanes). The A term is VPU lane work; the B term absorbs plane
-HBM traffic plus capacity-proportional overheads (including the amortized
-rebin at the default cadence); D is a per-problem-size intercept that
-soaks up dispatch floors and cross-capture relay-throughput offsets —
+where planes(cap) = cap(cap-1)/2 + 4 cap^2 is the pair-plane count per bin
+of a Newton's-third-law step, occ = mean bin occupancy n/m^2, and pad =
+padded/physical plane-area ratio (rows pad to 8, cols to 128). The A term
+is pair work; the B term absorbs plane traffic plus capacity-proportional
+overheads (including the amortized rebin at the default cadence); D is a
+per-problem-size intercept that soaks up dispatch floors —
 SlabGeometry.for_config only compares candidates at the SAME size, so D
 never affects the choice. Fit source: the ``"ab": "grid_geometry"`` rows
-in bench/results_tpu.jsonl (one-process TPU A/Bs at n=4.2M and 20.97M).
+that bench/ab_grid.py appends.
 
 The fitted A and B are frozen into ops/grid_ops.py (_GEOM_COST_A/B) where
-SlabGeometry.for_config uses them to choose lane-exact ("snapped")
-geometries; rerun this script after recording new ablation rows and update
-the constants if the fit moves.
+SlabGeometry.for_config uses them to choose snapped geometries. The
+constants there were fitted on another machine; rerun ab_grid.py on the GPU
+and this script to refit them (the GPU kernel evaluates 9 cap^2 pair planes
+per bin, so planes(cap) changes too).
 
-Usage: python bench/geom_fit.py [--jsonl bench/results_tpu.jsonl]
+Usage: python bench/geom_fit.py [--jsonl bench/results.jsonl]
 """
 
 import argparse
@@ -46,7 +46,7 @@ def features(n: int, scale: float, cap: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--jsonl", default="bench/results_tpu.jsonl")
+    ap.add_argument("--jsonl", default="bench/results.jsonl")
     args = ap.parse_args(argv)
 
     rows = []

@@ -24,7 +24,7 @@ def load(path):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("results", nargs="?", default="bench/results_tpu.jsonl")
+    ap.add_argument("results", nargs="?", default="bench/results.jsonl")
     ap.add_argument("--outdir", default="bench")
     ap.add_argument("--prefix", default="",
                     help="filename prefix, e.g. '3d-' -> bench/3d-linear.png "
@@ -46,7 +46,7 @@ def main(argv=None) -> int:
         if "ab" in r or "failed" in r or r.get("num_devices", 1) != 1:
             continue
         # A non-default force law is its own series (a file can mix the
-        # repulsive sweep with lj rows, e.g. results_tpu3d.jsonl).
+        # repulsive sweep with lj rows).
         series = r["engine"]
         law = r.get("force_law", "repulsive")
         if law != "repulsive" and not series.endswith(f"[{law}]"):
@@ -75,8 +75,8 @@ def main(argv=None) -> int:
         fig.savefig(f"{args.outdir}/{args.prefix}linear.png", dpi=120)
 
     # ---- device scaling --------------------------------------------------
-    # Rows without an "engine" key are per-variant ablation records
-    # (e.g. ab_tile1.py's "variant" rows) — not scaling data.
+    # Rows without an "engine" key are per-variant ablation records (the
+    # bench/ab_*.py scripts' "variant" rows) — not scaling data.
     sharded = [r for r in records if "engine" in r
                and (r.get("num_devices", 1) > 1
                     or r["engine"].startswith("sharded"))]

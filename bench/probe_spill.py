@@ -12,9 +12,10 @@ Questions this answers before any engine change (r5):
      the overflow loss-free without raising capacity?
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ppsim_tpu.testing import force_cpu_devices
 

@@ -8,9 +8,10 @@ capacity 13, how many bins overflow at t=0 and are they spillable
 (a boundary-proximate particle with a free-slot neighbor)?
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ppsim_tpu.testing import force_cpu_devices
 

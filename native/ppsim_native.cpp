@@ -1,7 +1,7 @@
 // Native ground-truth engine for ppsim_tpu.
 //
 // Role (SURVEY.md §2 native-code note): the reference is 100% native C++; the
-// TPU rebuild keeps a native oracle so JAX trajectories can be cross-checked
+// JAX rebuild keeps a native oracle so JAX trajectories can be cross-checked
 // against an independent, double-precision, CPU implementation — including
 // bit-exact validation of the mt19937 initializer against libstdc++.
 //

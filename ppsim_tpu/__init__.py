@@ -1,10 +1,10 @@
-"""ppsim_tpu — a TPU-native parallel particle simulation framework.
+"""ppsim_tpu — a JAX parallel particle simulation framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the CS267-style
 ``parallel-particle-simulation`` reference (2D short-range-repulsion particle
 collision simulation, parallelized serial/OpenMP/MPI/CUDA in the reference).
 
-Layer map (TPU-native analog of the reference's architecture):
+Layer map (the JAX analog of the reference's architecture):
 
 - :mod:`ppsim_tpu.config`   — physics constants + engine tunables
   (reference: part1/common.h:4-11 compile-time macros).
@@ -20,8 +20,8 @@ Layer map (TPU-native analog of the reference's architecture):
 - :mod:`ppsim_tpu.engines.sharded` / :mod:`ppsim_tpu.engines.sharded_grid` —
   shard_map spatial decomposition + ppermute halo exchange
   (reference: part2/mpi.cpp MPI row strips + ghost rows).
-- :mod:`ppsim_tpu.ops`      — Pallas TPU kernels for the hot ops
-  (reference: part3/gpu.cu CUDA kernels).
+- :mod:`ppsim_tpu.ops`      — XLA ops and the Pallas (Triton) step kernel
+  for the hot path (reference: part3/gpu.cu CUDA kernels).
 - :mod:`ppsim_tpu.io`       — trajectory save format, checkpointing, gather
   (reference: ``save`` part1/main.cpp:15-28, ``gather_for_save``
   part2/mpi.cpp:371-402).

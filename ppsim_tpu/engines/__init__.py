@@ -11,22 +11,20 @@ Here the seam is :class:`ppsim_tpu.engines.base.Engine`; backends:
   an explicit particle list, so it is the bitwise-parity partner of the oracle
 - ``grid``    — dense slab-grid engine (state lives on the bin grid,
   bin-local coordinates, lazy rebinning); XLA ops everywhere
-- ``pallas``  — grid engine with the Mosaic force kernel on the hot path
-  (reference: part3/gpu.cu CUDA kernels); the flagship perf engine
-- ``sharded`` — multi-chip shard_map strip decomposition over particle
+- ``pallas``  — grid engine with the fused Triton force+move kernel on the
+  hot path (reference: part3/gpu.cu CUDA kernels); the flagship perf engine
+- ``sharded`` — multi-device shard_map strip decomposition over particle
   lists with ppermute halo exchange and explicit emigrant buffers
   (reference: part2/mpi.cpp, closest structural analog)
-- ``sharded_grid`` — the flagship multi-chip path: slab-grid Mosaic kernels
-  per shard, row-strip sharding, ghost-row halo + count-plane migration
+- ``sharded_grid`` — the flagship multi-device path: the slab-grid step
+  kernel per shard, row-strip sharding, ghost-row halo + ghost-row migration
 - ``sharded_tile`` — 2-D tile-mesh decomposition (rows x cols, corner-aware
-  two-round halo): surface-to-volume comm scaling for pod-size meshes,
-  XLA-twin ops per tile
+  two-round halo): surface-to-volume comm scaling, XLA-twin ops per tile
 - ``binned3d`` — 3D cell-list engine (3x3x3 stencil, rebuild-per-step
   neighbor candidates); the stretch-config dimension (ndim=3, either law)
-- ``grid3d`` / ``pallas3d`` — 3D dense slab-grid engines ((cap, Y, X, Z)
-  layout): the stretch config in the flagship layout, with the symmetric
-  Mosaic step kernel on ``pallas3d``
-- ``sharded_grid3d`` — multi-chip 3D: y-strip decomposition, ppermute
+- ``grid3d`` — 3D dense slab-grid engine ((cap, Y, X, Z) layout): the
+  stretch config in the flagship layout
+- ``sharded_grid3d`` — multi-device 3D: y-strip decomposition, ppermute
   ghost-slab halo, cross-shard migration through the extended rebin
 """
 

@@ -1,6 +1,6 @@
 """Single-chip binned engine: sort-rebin + stencil forces, one jitted scan.
 
-The TPU-native unification of the reference's three shared-memory engines:
+The static-shape unification of the reference's three shared-memory engines:
 
 - rebin-every-step strategy (part1/vecmp.cpp:88-123) rather than incremental
   pointer migration (part1/serial.cpp:63-70) — rebuild-per-step is the only
@@ -44,7 +44,7 @@ class BinnedEngine(Engine):
         self.geom = GridGeometry.square(config)
 
     def accel_of(self, pos_sorted, row, col, grid):
-        """Force phase; overridden by the Pallas engine with a Mosaic kernel."""
+        """Force phase (the 3x3 stencil gather)."""
         from ppsim_tpu.physics import accel_fn_for
 
         cfg = self.config

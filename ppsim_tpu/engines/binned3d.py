@@ -16,8 +16,7 @@ bin containers, part1/serial.cpp:76-117) to three dimensions:
 Both force laws plug in through physics.accel_vec_fn_for — 3D LJ (the full
 stretch config) is just ``SimConfig(ndim=3, force_law="lj")``.
 
-The dense slab-grid / Mosaic-kernel 3D formulation (a (capacity, X, Y*Z)
-plane layout with the Z rolls in-lane) is the planned round-3 extension; the
+The dense slab-grid 3D formulation is engines/grid3d.py; the
 oracle (engines/oracle.py, ndim=3) is this engine's ground truth.
 """
 

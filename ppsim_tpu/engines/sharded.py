@@ -1,6 +1,6 @@
-"""Multi-chip spatially-sharded engine: shard_map strips + ppermute halo.
+"""Multi-device spatially-sharded engine: shard_map strips + ppermute halo.
 
-TPU-native rebuild of the reference's MPI engine (part2/mpi.cpp):
+A shard_map rebuild of the reference's MPI engine (part2/mpi.cpp):
 
 - 1-D row-strip domain decomposition over x — rank owns a contiguous slab of
   bin rows (reference: ``get_particle_rank`` part2/mpi.cpp:47-51,
@@ -10,7 +10,7 @@ TPU-native rebuild of the reference's MPI engine (part2/mpi.cpp):
   offset); ghosts are filled each step by exchanging the boundary rows of the
   freshly built bin grid with both neighbors (reference:
   ``communicate_with_neighbor_proc`` :122-146 via ``MPI_Sendrecv``). Here:
-  two ``lax.ppermute`` shifts over ICI of fixed-shape grid-row slabs — the
+  two ``lax.ppermute`` shifts of fixed-shape grid-row slabs — the
   static-shape replacement for MPI's variable-length messages (the reference
   itself bounds its recv buffers, :15,264-265).
 - cross-device particle migration after the move phase (reference:

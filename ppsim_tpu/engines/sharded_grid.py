@@ -1,22 +1,22 @@
-"""Multi-chip slab-grid engine: the flagship path, spatially sharded.
+"""Multi-device slab-grid engine: the flagship path, spatially sharded.
 
-Combines the two performance pillars: the dense slab-grid Mosaic kernels
-(engines/grid.py) run per shard, and the domain is split into row strips over
+Combines the two performance pillars: the dense slab-grid step
+(engines/grid.py) runs per shard, and the domain is split into row strips over
 a 1-D device mesh exactly like the reference's MPI decomposition
-(part2/mpi.cpp:258-294) — but with the TPU-native transport:
+(part2/mpi.cpp:258-294):
 
 - **force halo**: each step, the strip's boundary bin row (xl, yl slabs,
-  fixed shape) moves to both neighbors by ``lax.ppermute`` over ICI and
-  enters the fused force+move kernel as ghost rows — the static-shape
-  replacement for ``communicate_with_neighbor_proc``'s variable-length
-  ``MPI_Sendrecv`` (part2/mpi.cpp:122-146).
+  fixed shape) moves to both neighbors by ``lax.ppermute`` and enters the
+  fused force+move kernel as ghost rows — the static-shape replacement for
+  ``communicate_with_neighbor_proc``'s variable-length ``MPI_Sendrecv``
+  (part2/mpi.cpp:122-146).
 - **migration**: the loss-free rebin's acceptance predicate is evaluated from
-  *count planes* (see ops/pallas_rebin.py); exchanging one ghost row of every
-  field and two ghost rows of the count stack makes cross-shard migration
-  fall out of the same destination-pull shuffle — no emigrant buffers, no
-  handshakes, no equivalent of mpi.cpp:230-253's send/recv pairs at all.
-  Both shards evaluate identical predicates on identical exchanged data, so
-  transfers are consistent by construction.
+  neighbourhood counts; extending each strip by two ghost rows of every
+  field makes cross-shard migration fall out of the same destination-pull
+  shuffle — no emigrant buffers, no handshakes, no equivalent of
+  mpi.cpp:230-253's send/recv pairs at all. Both shards evaluate identical
+  predicates on identical exchanged data, so transfers are consistent by
+  construction.
 - **no barriers**: SPMD program order (the reference needs three
   ``MPI_Barrier`` per step, mpi.cpp:308,358,364).
 
@@ -46,13 +46,6 @@ from ppsim_tpu.state import ParticleState
 __all__ = ["ShardedGridEngine"]
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
 @register_engine
 class ShardedGridEngine(GridEngine):
     name = "sharded_grid"
@@ -68,27 +61,31 @@ class ShardedGridEngine(GridEngine):
         self,
         config: SimConfig,
         devices: Optional[Sequence[jax.Device]] = None,
-        interpret: Optional[bool] = None,
+        interpret: bool = False,
         impl: str = "pallas",
     ):
-        """``impl``: "pallas" (Mosaic kernels per shard; interpret-emulated
-        off-TPU) or "xla" (the grid twin ops per shard via ghost-row
-        extension — algorithmically identical, and the only practical way to
-        run big multi-device problems on a CPU mesh, where interpret-mode
-        Mosaic is ~1000x off)."""
+        """``impl``: "pallas" (the Triton step kernel per shard; NVIDIA GPU
+        only unless ``interpret=True``) or "xla" (the grid twin ops per
+        shard via ghost-row extension — algorithmically identical, and the
+        practical way to run multi-device problems on a CPU mesh)."""
         super().__init__(config)
         devices = list(devices) if devices is not None else jax.devices()
         self.mesh = Mesh(np.array(devices), axis_names=("x",))
         self.P = len(devices)
-        self.interpret = (not _on_tpu()) if interpret is None else interpret
         if impl not in ("pallas", "xla"):
             raise ValueError(f"unknown sharded_grid impl {impl!r}")
+        if impl == "pallas":
+            from ppsim_tpu.ops.pallas_grid import require_gpu
+
+            require_gpu(interpret)
+        self.interpret = interpret
         self.impl = impl
 
         base = self.geom
-        # Local strips must be row-block friendly; pad global rows to
-        # P * rows_local with rows_local a multiple of 8.
-        rows_local = -(-base.rows // (self.P * 8)) * 8
+        # Pad global rows to P equal strips; a strip is at least as tall as
+        # the rebin's 2-row halo (a shorter one would silently truncate the
+        # f[:, -2:] halo slice).
+        rows_local = max(2, -(-base.rows // self.P))
         self.rows_local = rows_local
         self.geom = dataclasses.replace(base, rows_pad=self.P * rows_local)
 
@@ -182,11 +179,10 @@ class ShardedGridEngine(GridEngine):
         return new.xl, new.yl, new.vx, new.vy, max_speed
 
     def _local_rebin_xla(self, state: SlabState, row0):
-        """XLA-twin cross-shard rebin: extend by TWO ghost rows of every
-        field (the acceptance predicate at a destination needs its full 3x3
-        count neighborhood — the same reason the Mosaic path exchanges two
-        ghost rows of the count planes), run the single-chip loss-free
-        shuffle on the extension, slice the interior. Both neighbors compute
+        """Cross-shard rebin: extend by TWO ghost rows of every field (the
+        acceptance predicate at a destination needs its full 3x3 count
+        neighborhood), run the single-chip loss-free shuffle on the
+        extension, slice the interior. Both neighbors compute
         identical acceptance decisions from identical overlapping data, so
         cross-shard transfers stay consistent with no handshake."""
         cfg = self.config
@@ -206,12 +202,6 @@ class ShardedGridEngine(GridEngine):
         return SlabState(*(f[:, 2:-2, :] for f in new_ext))
 
     def _local_move_rebin(self, xl, yl, vx, vy, pid):
-        from ppsim_tpu.ops.pallas_rebin import (
-            rebin_counts_pallas,
-            rebin_shuffle_pallas,
-        )
-
-        cfg = self.config
         nxl, nyl, nvx, nvy, max_speed = self._local_plain(xl, yl, vx, vy, pid)
         state = SlabState(nxl, nyl, nvx, nvy, pid)
         row0 = jax.lax.axis_index("x") * self.rows_local
@@ -221,67 +211,7 @@ class ShardedGridEngine(GridEngine):
             return (state.xl, state.yl, state.vx, state.vy, state.pid,
                     z, z, z, max_speed)
 
-        if self.impl != "xla" and cfg.grid_rebin_mode == "axes":
-            # Fused axes kernel per shard: the x (strip-axis) pass reads
-            # fields at -1..+1 rows and counts at +2, so the exchange is
-            # 1 ghost row from above and 1 (2 for xl/pid) from below —
-            # strictly less traffic than the dirs9 path's field + 9-plane
-            # count ghosts. Monitors come from the kernel's count planes,
-            # reduced across shards (per-shard 'lost' is transfer flux).
-            from ppsim_tpu.ops.pallas_rebin import (
-                _ALIVE_POST,
-                _ALIVE_PRE,
-                _FAR_PRE,
-                _RESID_POST,
-                rebin_axes_call_pallas,
-            )
-
-            fills = ((state.xl, BIG), (state.yl, BIG), (state.vx, 0.0),
-                     (state.vy, 0.0), (state.pid, -1))
-            ghosts = []
-            for fi, (f, fill) in enumerate(fills):
-                nbot = 2 if fi in (0, 4) else 1
-                top = self._from_above(
-                    f[:, -1:, :], jnp.full_like(f[:, -1:, :], fill)
-                )
-                bot = self._from_below(
-                    f[:, :nbot, :], jnp.full_like(f[:, :nbot, :], fill)
-                )
-                ghosts.append((top, bot))
-            new, cnt = rebin_axes_call_pallas(
-                state, self.geom, cfg.evac_capacity,
-                interpret=self.interpret, row0=row0, field_ghosts=ghosts,
-            )
-            # int32 BEFORE the sums: f32 sums lose integer exactness past
-            # 2^24, below the flagship particle counts
-            cnt = cnt.astype(jnp.int32)
-            before = jax.lax.psum(cnt[_ALIVE_PRE].sum(), "x")
-            after = jax.lax.psum(cnt[_ALIVE_POST].sum(), "x")
-            far_n = jax.lax.psum(cnt[_FAR_PRE].sum(), "x")
-            deferred = jax.lax.psum(cnt[_RESID_POST].sum(), "x")
-            occupancy = jax.lax.pmax(cnt[_ALIVE_POST].max(), "x")
-            dropped = (before - after) + far_n
-            return (new.xl, new.yl, new.vx, new.vy, new.pid,
-                    occupancy, dropped, deferred, max_speed)
-
-        if self.impl == "xla":
-            new = self._local_rebin_xla(state, row0)
-        else:
-            counts = rebin_counts_pallas(
-                state, self.geom, interpret=self.interpret, row0=row0
-            )
-            field_ghosts = [
-                self._halo(f, fill, 1)
-                for f, fill in ((state.xl, BIG), (state.yl, BIG),
-                                (state.vx, 0.0), (state.vy, 0.0),
-                                (state.pid, -1))
-            ]
-            count_ghosts = self._halo(counts, 0.0, 2)
-            new = rebin_shuffle_pallas(
-                state, counts, self.geom, cfg.evac_capacity,
-                interpret=self.interpret, row0=row0,
-                field_ghosts=field_ghosts, count_ghosts=count_ghosts,
-            )
+        new = self._local_rebin_xla(state, row0)
 
         # monitors (cross-shard aware: transfers move alive counts between
         # shards, so loss is only meaningful after the psum)
@@ -340,6 +270,23 @@ class ShardedGridEngine(GridEngine):
             carry,
         )
 
+    def _pack_jit(self):
+        """The packer, compiled to write its slab straight into the strip
+        sharding (each device then holds only its own strip of the run
+        state, not a full copy on the first device)."""
+        cache = self.__dict__.setdefault("_packs", {})
+        cap = self.geom.capacity
+        if cap not in cache:
+            geom, mode = self.geom, self.config.grid_pack_mode
+            sh = NamedSharding(self.mesh, self._slab_spec)
+            cache[cap] = jax.jit(
+                lambda p, v: grid_ops.slab_from_particles(p, v, geom, mode),
+                out_shardings=(SlabState(*([sh] * 5)), None),
+            )
+        return cache[cap]
+
+    _slab_spec = P(None, "x", None)
+
     def init_carry(self, state: ParticleState):
         from ppsim_tpu.engines.grid import GridCarry, seed_pack_monitors
 
@@ -347,7 +294,5 @@ class ShardedGridEngine(GridEngine):
         # Pack overflow is deferred into the monitors (check() raises
         # post-run) — an eager int(overflow) here is a device->host sync
         # inside the timed region; see GridEngine.init_carry.
-        sh = NamedSharding(self.mesh, P(None, "x", None))
-        slab = SlabState(*(jax.device_put(f, sh) for f in slab))
         return GridCarry(slab, jnp.zeros((), jnp.int32),
                          seed_pack_monitors(overflow, self.capacity))

@@ -1,24 +1,17 @@
-"""Multi-chip 3D slab-grid engine: y-strip decomposition over a 1-D mesh.
+"""Multi-device 3D slab-grid engine: y-strip decomposition over a 1-D mesh.
 
 The 3D twin of engines/sharded_grid.py: the (capacity, Y, X, Z) slab fields
 shard over y (the blocked axis), each device owns a contiguous y-strip, and
-per step one boundary y-slab moves to each neighbor by ``lax.ppermute`` over
-ICI — the same strip/halo architecture as the reference's MPI rows
+per step one boundary y-slab moves to each neighbor by ``lax.ppermute`` —
+the same strip/halo architecture as the reference's MPI rows
 (part2/mpi.cpp:258-294) rotated into the 3D layout.
 
-Two per-shard impls, exactly the 2D engine's split:
-
-- ``impl="pallas"`` (flagship): ghost y-slabs enter the symmetric Mosaic
-  step kernel directly (ops/pallas_grid3d.py), and the rebin runs the
-  Mosaic fused-xz + y-pass kernels (ops/pallas_rebin3.py) on a 2-ghost-slab
-  extension;
-- ``impl="xla"`` (CPU-mesh-scale twin): 27-plane stencil force on a
-  1-ghost-slab extension, axis-factorized XLA rebin on the 2-ghost one.
-
-In both, the rebin's acceptance predicate at a destination needs its full
-3x3x3 count neighborhood, so both neighbors compute identical transfer
-decisions from identical overlapping data — cross-shard migration with no
-handshake (see sharded_grid.ShardedGridEngine._local_rebin_xla).
+Per shard, the grid3 twin ops run on ghost-slab extensions: the 27-plane
+stencil force on a 1-ghost-slab extension, the axis-factorized rebin on a
+2-ghost-slab one. The rebin's acceptance predicate at a destination needs
+its full 3x3x3 count neighborhood, so both neighbors compute identical
+transfer decisions from identical overlapping data — cross-shard migration
+with no handshake (see sharded_grid.ShardedGridEngine._local_rebin_xla).
 """
 
 from __future__ import annotations
@@ -65,21 +58,8 @@ class ShardedGrid3DEngine(Grid3DEngine):
         self,
         config: SimConfig,
         devices: Optional[Sequence[jax.Device]] = None,
-        interpret: Optional[bool] = None,
-        impl: str = "pallas",
     ):
-        """``impl``: "pallas" (the symmetric Mosaic 3D kernel per shard,
-        with ghost y-slabs entering the kernel directly; interpret-emulated
-        off-TPU) or "xla" (the grid3 twin ops via ghost-slab extension —
-        the practical choice for CPU-mesh-scale runs)."""
         super().__init__(config)
-        if impl not in ("pallas", "xla"):
-            raise ValueError(f"unknown sharded_grid3d impl {impl!r}")
-        self.impl = impl
-        self.interpret = (
-            (jax.devices()[0].platform != "tpu") if interpret is None
-            else interpret
-        )
         devices = list(devices) if devices is not None else jax.devices()
         self.mesh = Mesh(np.array(devices), axis_names=("x",))
         self.P = len(devices)
@@ -96,6 +76,8 @@ class ShardedGrid3DEngine(Grid3DEngine):
         self.geom = dataclasses.replace(base, ys_pad=self.P * ys_local)
 
         spec = P(None, "x", None, None)
+        # check_vma=False: grid3_rebin_axes' scan carries start replicated
+        # (zeros) and come back shard-varying.
         self._plain_step = jax.shard_map(
             self._local_plain,
             mesh=self.mesh,
@@ -142,35 +124,7 @@ class ShardedGrid3DEngine(Grid3DEngine):
     def _local_plain(self, xl, yl, zl, vx, vy, vz, pid):
         if self._phase_disable == "move":
             return xl, yl, zl, vx, vy, vz, jnp.zeros((), jnp.float32)
-        if self.impl == "pallas":
-            return self._local_plain_pallas(xl, yl, zl, vx, vy, vz, pid)
         return self._local_plain_xla(xl, yl, zl, vx, vy, vz, pid)
-
-    def _local_plain_pallas(self, xl, yl, zl, vx, vy, vz, pid):
-        from ppsim_tpu.ops.pallas_grid3d import (
-            SPEED_PLANE_CAP_MAX,
-            grid3_step_pallas,
-        )
-
-        cfg = self.config
-        y0 = jax.lax.axis_index("x") * self.ys_local
-        ghosts = []
-        for f, fill in ((xl, BIG), (yl, BIG), (zl, BIG)):
-            ghosts.append(self._halo(f, fill, 1))
-        (tx, bx), (ty, by), (tz, bz) = ghosts
-        nxl, nyl, nzl, nvx, nvy, nvz, speed2 = grid3_step_pallas(
-            xl, yl, zl, vx, vy, vz, self.geom,
-            cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size,
-            interpret=self.interpret, y0=y0,
-            ghosts=(tx, ty, tz, bx, by, bz),
-            law=cfg.force_law, law_params=cfg.law_params,
-            emit_speed=self.geom.capacity <= SPEED_PLANE_CAP_MAX,
-        )
-        if speed2 is None:
-            # High-cap VMEM fallback (see Pallas3DEngine.move_phase).
-            speed2 = nvx * nvx + nvy * nvy + nvz * nvz
-        max_speed = jax.lax.pmax(jnp.sqrt(speed2.max()), "x")
-        return nxl, nyl, nzl, nvx, nvy, nvz, max_speed
 
     def _local_plain_xla(self, xl, yl, zl, vx, vy, vz, pid):
         cfg = self.config
@@ -206,51 +160,6 @@ class ShardedGrid3DEngine(Grid3DEngine):
         # Both neighbors evaluate the same acceptance predicate from the
         # same overlapping data, so cross-shard transfers need no handshake.
         ext = self._extend(state, 2)
-        if self.impl == "pallas":
-            from ppsim_tpu.ops.pallas_rebin3 import (
-                rebin3_inplane_pallas,
-                rebin3_ypass_pallas,
-            )
-
-            from ppsim_tpu.ops.pallas_rebin3 import (
-                _ALIVE_POST3,
-                _ALIVE_PRE3,
-                _FAR_PRE3,
-                _RESID_POST3,
-            )
-
-            mid, counts = rebin3_inplane_pallas(
-                ext, self.geom, cfg.evac_capacity,
-                interpret=self.interpret, y0=y0 - 2,
-            )
-            new_ext, post = rebin3_ypass_pallas(
-                mid, counts, self.geom, cfg.evac_capacity,
-                interpret=self.interpret, y0=y0 - 2,
-            )
-            new = Slab3State(*(f[:, 2:-2] for f in new_ext))
-            # Monitors from the kernels' count planes, owned slabs only
-            # (ghost slabs recompute the neighbor's stats; per-shard 'lost'
-            # is boundary flux, meaningful only after the psum).
-            # int32 BEFORE the sums: f32 sums lose integer exactness past
-            # 2^24, below the stretch particle counts
-            post = post[:, 2:-2].astype(jnp.int32)
-            if counts.shape[0] > _FAR_PRE3:  # fused path carries pre stats
-                pre = counts[:, 2:-2].astype(jnp.int32)
-                before = jax.lax.psum(pre[_ALIVE_PRE3].sum(), "x")
-                far_n = jax.lax.psum(pre[_FAR_PRE3].sum(), "x")
-            else:
-                _, _, _, far0, _ = grid3d_ops.slab3_dirs(state, self.geom, y0=y0)
-                before = jax.lax.psum(
-                    (state.pid >= 0).astype(jnp.int32).sum(), "x"
-                )
-                far_n = jax.lax.psum(far0.astype(jnp.int32).sum(), "x")
-            after = jax.lax.psum(post[_ALIVE_POST3].sum(), "x")
-            deferred = jax.lax.psum(post[_RESID_POST3].sum(), "x")
-            occupancy = jax.lax.pmax(post[_ALIVE_POST3].max(), "x")
-            dropped = (before - after) + far_n
-            return (new.xl, new.yl, new.zl, new.vx, new.vy, new.vz, new.pid,
-                    occupancy, dropped, deferred, max_speed)
-
         new_ext, _ = grid3d_ops.grid3_rebin_axes(
             ext, self.geom, cfg.evac_capacity, y0=y0 - 2
         )

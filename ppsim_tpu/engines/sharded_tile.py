@@ -9,48 +9,27 @@ surface-to-volume scaling, the standard upgrade the reference's write-up
 defers ("2-D decomposition left as future work", part2 PDF) and SURVEY.md §5
 marks as the natural extension for pod-scale topologies.
 
-TPU-native design notes:
+Design notes:
 
 - mesh axes ``("x", "y")`` (x indexes bin rows, y bin cols, matching the
-  coordinate convention of ops/grid_ops.py). Row tiles stay multiples of the
-  8-sublane block, col tiles multiples of the 128-lane block, so every shard
-  keeps hardware-aligned planes.
-- **halo with corners**: ghost exchange runs cols-first then rows ON THE
-  COL-EXTENDED arrays, so corner bins arrive via the row neighbor (whose
-  col extension already contains the diagonal neighbor's boundary cols) —
+  coordinate convention of ops/grid_ops.py). ``col_block`` rounds col
+  tiles up to a multiple (tests keep it small so tiny grids still split).
+- **halo with corners**: ghost exchange runs rows first, then cols ON THE
+  ROW-EXTENDED arrays, so corner bins arrive via the col neighbor (whose
+  row extension already contains the diagonal neighbor's boundary rows) —
   two ppermute rounds, no separate diagonal sends. The reference's MPI
   engine never solves this (1-D strips have no corners).
-- **impl="pallas"** (default): the flagship Mosaic kernels run per tile on
-  **col-extended arrays with resident ghost-lane blocks** — each side gains
-  a ``ghost_lanes``-wide block (64 lanes at the 128 col quantum, so the
-  extended width stays lane-aligned) whose inner 1-2 lanes carry the
-  lateral neighbors' boundary cols by ``ppermute``. The symmetric step
-  kernel (ops/pallas_grid.py) then needs NO new pair logic: a ghost lane's
-  own east/south evaluations scatter the Newton-3rd reaction forces onto
-  the interior edge lanes, exactly as in-kernel lanes do, and the interior
-  edge lanes read the ghost data through the same rolls. Ghost-lane outputs
-  are sliced off. The fused axes rebin kernel (ops/pallas_rebin.py) runs on
-  a 2-real-ghost-col extension the same way: its per-lane x pass makes the
-  ghost lanes' x-settled state bit-identical to the owners' interior state,
-  so the y pass's cross-boundary pulls/clears are SPMD-consistent with no
-  handshake. Both kernels take a global-col plane (``col0``) because shard
-  lane 0 is a ghost lane, not global col 0. This is the part2xpart3 fusion
-  (mpi.cpp:258-294 + gpu.cu:115-142) on the decomposition that scales.
-- **impl="xla"**: the grid twin ops per tile via literal 2-D ghost-ring
-  extension — algorithmically identical, and the only practical way to run
-  big multi-device problems on a CPU mesh (interpret-mode Mosaic is ~1000x
-  off). A 1xN or Nx1 or 1x1 mesh with impl="pallas" compiles the exact
-  single-chip/strip kernel programs (no ghost lanes are added when the col
-  axis is uncut).
+- **per-tile step**: the grid twin ops on a literal 2-D ghost-ring
+  extension — 1 ring for the force stencil, 2 for the rebin.
 - **migration**: the loss-free rebin runs on the ghost-ring extension in
   both axes; both sides of every boundary (and all four tiles at a corner)
   evaluate identical acceptance predicates on identical overlapped data, so
   cross-tile transfers are consistent with no handshake — the same
   SPMD-consistency argument as the 1-D engine, applied per axis.
 
-Tested on forced CPU meshes (2x2, 2x4; both impls) against the single-chip
-grid engine; ``bench/sweep.py --strong/--weak --engine sharded_tile`` drives
-it for scaling measurements.
+Tested on forced CPU meshes (2x2, 1x4, 4x2) against the single-device grid
+engine; ``bench/sweep.py --strong/--weak --engine sharded_tile`` drives it
+for scaling measurements.
 """
 
 from __future__ import annotations
@@ -62,22 +41,21 @@ from typing import Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ppsim_tpu.config import SimConfig
 from ppsim_tpu.engines.base import register_engine
-from ppsim_tpu.engines.sharded_grid import ShardedGridEngine, _on_tpu
+from ppsim_tpu.engines.sharded_grid import ShardedGridEngine
 from ppsim_tpu.ops import grid_ops
 from ppsim_tpu.ops.binning import BIG
 from ppsim_tpu.ops.grid_ops import SlabState
-from ppsim_tpu.state import ParticleState
 
 __all__ = ["ShardedTileEngine"]
 
 
 def _mesh_factor(n: int) -> Tuple[int, int]:
-    """Near-square (rows, cols) factorization, rows-heavy: the row axis has
-    the finer alignment quantum (8 vs 128), so it splits with less padding."""
+    """Near-square (rows, cols) factorization, rows-heavy (a row split keeps
+    each tile's rows whole and contiguous in memory)."""
     pc = int(math.sqrt(n))
     while n % pc:
         pc -= 1
@@ -93,16 +71,11 @@ class ShardedTileEngine(ShardedGridEngine):
         config: SimConfig,
         devices: Optional[Sequence[jax.Device]] = None,
         mesh_shape: Optional[Tuple[int, int]] = None,
-        col_block: int = 128,
-        impl: str = "pallas",
-        interpret: Optional[bool] = None,
+        col_block: int = 1,
     ):
         """``mesh_shape``: (row tiles, col tiles); default factors the device
-        count near-square. ``col_block``: col-tile alignment quantum (128 =
-        the lane width; tests shrink it so small grids still split in y).
-        ``impl``: "pallas" (Mosaic kernels per tile on ghost-lane-extended
-        arrays; interpret-emulated off-TPU) or "xla" (the grid twin ops per
-        tile — what CPU-mesh scaling benchmarks run)."""
+        count near-square. ``col_block``: col tiles are rounded up to a
+        multiple of it."""
         # Skip ShardedGridEngine.__init__ (1-D mesh plumbing); take the
         # GridEngine base directly.
         super(ShardedGridEngine, self).__init__(config)
@@ -113,30 +86,21 @@ class ShardedTileEngine(ShardedGridEngine):
         if self.Pr * self.Pc != len(devices):
             raise ValueError(
                 f"mesh_shape {mesh_shape} != {len(devices)} devices")
-        if impl not in ("pallas", "xla"):
-            raise ValueError(f"unknown sharded_tile impl {impl!r}")
-        self.impl = impl
-        self.interpret = (not _on_tpu()) if interpret is None else interpret
         self.mesh = Mesh(
             np.array(devices).reshape(self.Pr, self.Pc), axis_names=("x", "y")
         )
 
         base = self.geom
-        rows_local = -(-base.rows // (self.Pr * 8)) * 8
-        cols_local = -(-base.cols // (self.Pc * col_block)) * col_block
+        # Tiles are at least as wide as the rebin's 2-bin ghost ring.
+        rows_local = max(2, -(-base.rows // self.Pr))
+        cols_local = max(2, -(-base.cols // (self.Pc * col_block)) * col_block)
         self.rows_local, self.cols_local = rows_local, cols_local
         self.geom = dataclasses.replace(
             base, rows_pad=self.Pr * rows_local, cols_pad=self.Pc * cols_local
         )
-        # Ghost-lane block width for the pallas impl's col-extended kernels:
-        # half the col quantum per side keeps the extended width on the same
-        # alignment grid (128-lane tiles on TPU); >= 2 real ghost cols is
-        # what the rebin's acceptance predicates need. An uncut col axis
-        # adds no ghost lanes (the kernels compile their single-chip/strip
-        # programs exactly).
-        self.ghost_lanes = max(2, col_block // 2) if self.Pc > 1 else 0
 
-        spec_f = P(None, "x", "y")
+        spec_f = self._slab_spec
+        # check_vma=False: as in the 1-D strip engines.
         self._plain_step = jax.shard_map(
             self._local_plain,
             mesh=self.mesh,
@@ -151,6 +115,8 @@ class ShardedTileEngine(ShardedGridEngine):
             out_specs=((spec_f,) * 5) + (P(),) * 4,
             check_vma=False,
         )
+
+    _slab_spec = P(None, "x", "y")
 
     # ------------------------------------------------------------- plumbing
     def _recv(self, x, fill, axis_name: str, np_: int, from_prev: bool):
@@ -172,7 +138,7 @@ class ShardedTileEngine(ShardedGridEngine):
         """Ghost-extend ``h`` bins on all four sides, corners included:
         rows first, then cols of the row-extended array (the lateral
         neighbor's row extension carries the diagonal neighbor's rows).
-        The XLA impl's literal ghost ring."""
+        The literal ghost ring of the per-tile step."""
         top = self._recv(f[:, -h:, :], fill, "x", self.Pr, True)
         bot = self._recv(f[:, :h, :], fill, "x", self.Pr, False)
         fe = jnp.concatenate([top, f, bot], axis=1)
@@ -180,83 +146,15 @@ class ShardedTileEngine(ShardedGridEngine):
         right = self._recv(fe[:, :, :h], fill, "y", self.Pc, False)
         return jnp.concatenate([left, fe, right], axis=2)
 
-    def _col_extend(self, f, fill, w: int):
-        """Col-extend ``f`` with resident ghost-lane BLOCKS: a
-        ``ghost_lanes``-wide ``fill`` block per side whose inner ``w`` lanes
-        carry the lateral neighbors' boundary cols (pallas impl)."""
-        G = self.ghost_lanes
-        cap, R, _ = f.shape
-        west = self._recv(f[:, :, -w:], fill, "y", self.Pc, True)
-        east = self._recv(f[:, :, :w], fill, "y", self.Pc, False)
-        wb = jnp.full((cap, R, G), fill, f.dtype).at[:, :, G - w:].set(west)
-        eb = jnp.full((cap, R, G), fill, f.dtype).at[:, :, :w].set(east)
-        return jnp.concatenate([wb, f, eb], axis=2)
-
-    def _row_ghosts(self, f, fill, top_h: int, bot_h: int):
-        """(top, bot) ghost-row blocks from the row neighbors. Called on
-        col-EXTENDED arrays, whose exchanged rows carry the diagonal
-        neighbors' corner bins in their ghost-lane sections."""
-        top = self._recv(f[:, -top_h:, :], fill, "x", self.Pr, True)
-        bot = self._recv(f[:, :bot_h, :], fill, "x", self.Pr, False)
-        return top, bot
-
     def _offsets(self):
         row0 = jax.lax.axis_index("x") * self.rows_local
         col0 = jax.lax.axis_index("y") * self.cols_local
         return row0, col0
 
-    def _geom_ext(self):
-        G = self.ghost_lanes
-        if not G:
-            return self.geom
-        return dataclasses.replace(
-            self.geom, cols_pad=self.cols_local + 2 * G
-        )
-
-    # ---------------------------------------------------------- local steps
     def _local_plain(self, xl, yl, vx, vy, pid):
         if self._phase_disable == "move":  # phase_times seam (sharded_grid)
             return xl, yl, vx, vy, jnp.zeros((), jnp.float32)
-        if self.impl == "xla":
-            return self._local_plain_xla(xl, yl, vx, vy, pid)
-        return self._local_plain_pallas(xl, yl, vx, vy, pid)
-
-    def _local_plain_pallas(self, xl, yl, vx, vy, pid):
-        """Fused Mosaic step per tile: 1 real ghost col per side resident in
-        the ghost-lane blocks (forces only need the adjacent col), row halo
-        exchanged on the col-extended arrays, ghost-lane outputs sliced off.
-        Velocities need no exchange — pair forces never read them, and
-        ghost-lane move-tail outputs are discarded."""
-        from ppsim_tpu.ops.pallas_grid import grid_step_pallas
-
-        cfg = self.config
-        row0, col0 = self._offsets()
-        G = self.ghost_lanes
-        if G:
-            xl_e = self._col_extend(xl, BIG, 1)
-            yl_e = self._col_extend(yl, BIG, 1)
-            zpad = jnp.zeros((xl.shape[0], xl.shape[1], G), xl.dtype)
-            vx_e = jnp.concatenate([zpad, vx, zpad], axis=2)
-            vy_e = jnp.concatenate([zpad, vy, zpad], axis=2)
-            col0_k = col0 - G
-        else:
-            xl_e, yl_e, vx_e, vy_e = xl, yl, vx, vy
-            col0_k = None
-        tx, bx = self._row_ghosts(xl_e, BIG, 1, 1)
-        ty, by = self._row_ghosts(yl_e, BIG, 1, 1)
-        nxl, nyl, nvx, nvy, speed2 = grid_step_pallas(
-            xl_e, yl_e, vx_e, vy_e, self._geom_ext(),
-            cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size,
-            interpret=self.interpret, row0=row0, col0=col0_k,
-            ghosts=(tx, ty, bx, by),
-            law=cfg.force_law, law_params=cfg.law_params,
-        )
-        max_speed = jax.lax.pmax(jnp.sqrt(speed2.max()), ("x", "y"))
-        if G:
-            nxl, nyl, nvx, nvy = (
-                f[:, :, G:-G] for f in (nxl, nyl, nvx, nvy)
-            )
-        return nxl, nyl, nvx, nvy, max_speed
+        return self._local_plain_xla(xl, yl, vx, vy, pid)
 
     def _local_plain_xla(self, xl, yl, vx, vy, pid):
         from ppsim_tpu.physics import accel_fn_for
@@ -277,55 +175,6 @@ class ShardedTileEngine(ShardedGridEngine):
         max_speed = jax.lax.pmax(max_speed, ("x", "y"))
         return new.xl, new.yl, new.vx, new.vy, max_speed
 
-    def _rebin_pallas_tile(self, state: SlabState, row0, col0, max_speed):
-        """Fused Mosaic axes rebin per tile: 2 real ghost cols resident in
-        the ghost-lane blocks (the acceptance predicates read counts up to
-        2 lanes away), then the 1-D engine's asymmetric row-ghost exchange
-        (xl/pid bot 2 rows — the x pass reads counts at +2) performed on
-        the col-extended fields so ghost rows carry corner data. Monitor
-        planes are sliced to interior lanes BEFORE the cross-mesh psum:
-        ghost-lane counts duplicate the owners' interior counts."""
-        from ppsim_tpu.ops.pallas_rebin import (
-            _ALIVE_POST,
-            _ALIVE_PRE,
-            _FAR_PRE,
-            _RESID_POST,
-            rebin_axes_call_pallas,
-        )
-
-        cfg = self.config
-        G = self.ghost_lanes
-        fills = ((state.xl, BIG), (state.yl, BIG), (state.vx, 0.0),
-                 (state.vy, 0.0), (state.pid, -1))
-        if G:
-            ext_fields = [self._col_extend(f, fill, 2) for f, fill in fills]
-            col0_k = col0 - G
-        else:
-            ext_fields = [f for f, _ in fills]
-            col0_k = None
-        ghosts = []
-        for fi, (fe, (_, fill)) in enumerate(zip(ext_fields, fills)):
-            nbot = 2 if fi in (0, 4) else 1
-            ghosts.append(self._row_ghosts(fe, fill, 1, nbot))
-        new, cnt = rebin_axes_call_pallas(
-            SlabState(*ext_fields), self._geom_ext(), cfg.evac_capacity,
-            interpret=self.interpret, row0=row0, col0=col0_k,
-            field_ghosts=ghosts,
-        )
-        if G:
-            new = SlabState(*(f[:, :, G:-G] for f in new))
-            cnt = cnt[:, :, G:-G]
-        cnt = cnt.astype(jnp.int32)
-        axes = ("x", "y")
-        before = jax.lax.psum(cnt[_ALIVE_PRE].sum(), axes)
-        after = jax.lax.psum(cnt[_ALIVE_POST].sum(), axes)
-        far_n = jax.lax.psum(cnt[_FAR_PRE].sum(), axes)
-        deferred = jax.lax.psum(cnt[_RESID_POST].sum(), axes)
-        occupancy = jax.lax.pmax(cnt[_ALIVE_POST].max(), axes)
-        dropped = (before - after) + far_n
-        return (new.xl, new.yl, new.vx, new.vy, new.pid,
-                occupancy, dropped, deferred, max_speed)
-
     def _local_move_rebin(self, xl, yl, vx, vy, pid):
         cfg = self.config
         nxl, nyl, nvx, nvy, max_speed = self._local_plain(xl, yl, vx, vy, pid)
@@ -337,12 +186,6 @@ class ShardedTileEngine(ShardedGridEngine):
             return (state.xl, state.yl, state.vx, state.vy, state.pid,
                     z, z, z, max_speed)
 
-        if self.impl != "xla" and cfg.grid_rebin_mode == "axes":
-            return self._rebin_pallas_tile(state, row0, col0, max_speed)
-
-        # XLA ghost-ring path (and the dirs9 fallback for impl="pallas":
-        # rebin relocations are exact storage moves, decision-identical
-        # between the twins, so mixing impls preserves bitwise parity).
         ext = SlabState(*(
             self._extend2(f, fill, 2)
             for f, fill in ((state.xl, BIG), (state.yl, BIG),
@@ -378,17 +221,6 @@ class ShardedTileEngine(ShardedGridEngine):
                 deferred.astype(jnp.int32), max_speed)
 
     # -------------------------------------------------------- engine hooks
-    # move_phase / step_with_rebin / step_carry / rebin_of inherit from
-    # ShardedGridEngine (same _plain_step/_rebin_step signatures).
-
-    def init_carry(self, state: ParticleState):
-        from ppsim_tpu.engines.grid import GridCarry, seed_pack_monitors
-
-        slab, overflow = self._pack_jit()(state.pos, state.vel)
-        # Pack overflow is deferred into the monitors (check() raises
-        # post-run) — an eager int(overflow) here is a device->host sync
-        # inside the timed region; see GridEngine.init_carry.
-        sh = NamedSharding(self.mesh, P(None, "x", "y"))
-        slab = SlabState(*(jax.device_put(f, sh) for f in slab))
-        return GridCarry(slab, jnp.zeros((), jnp.int32),
-                         seed_pack_monitors(overflow, self.capacity))
+    # move_phase / step_with_rebin / step_carry / rebin_of / init_carry
+    # inherit from ShardedGridEngine (same _plain_step/_rebin_step
+    # signatures; the pack writes straight into ``_slab_spec``).

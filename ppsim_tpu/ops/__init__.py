@@ -1,6 +1,6 @@
 """Hot-path ops: binning / force / integration building blocks.
 
-TPU-native replacements for the reference's parallel primitives: the OpenMP
+Lock-free replacements for the reference's parallel primitives: the OpenMP
 per-bin locks (part1/openmp.cpp:21,170-177), the CUDA ``atomicAdd`` bin insert
 (part3/gpu.cu:109), and the CUDA force/move kernels (part3/gpu.cu:115-170).
 Everything here is lock-free by construction: rebinning is a stable sort +

@@ -1,6 +1,6 @@
 """3x3 neighbor-bin stencil forces over the capacity-padded grid.
 
-TPU-native analog of the reference's force phase: the serial/OpenMP
+The vectorized analog of the reference's force phase: the serial/OpenMP
 ``calculate_bin_forces`` 3x3 stencil walk (part1/serial.cpp:102-117,
 part1/openmp.cpp:88-117) and the CUDA thread-per-bin ``compute_forces_gpu``
 kernel (part3/gpu.cu:115-142). Instead of iterating container contents, each

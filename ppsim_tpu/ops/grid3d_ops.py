@@ -1,21 +1,19 @@
-"""Dense 3D slab-grid: the stretch-config state layout (TPU-native 3D).
+"""Dense 3D slab-grid: the stretch-config state layout.
 
 The reference is strictly 2D; the declared stretch config (BASELINE.json
 configs[4]) is a 3D Lennard-Jones variant with neighbor lists at n=20M. This
-module generalizes the 2D slab grid (ops/grid_ops.py) to three dimensions
-in the TPU-natural way:
+module generalizes the 2D slab grid (ops/grid_ops.py) to three dimensions:
 
 - Fields ``xl, yl, zl, vx, vy, vz`` are laid out ``(capacity, Y, X, Z)``:
-  one (X, Z) register-tile plane per (slot, y-slab). X maps to sublanes
-  (padded to 8), Z to lanes (padded to 128), and **y is the outer blocked
-  axis** — the Mosaic kernel walks y-slabs the way the 2D kernel walks row
-  blocks, and the sharded decomposition strips over y exactly like the 2D
-  strip-over-x (the reference's MPI rows, part2/mpi.cpp:258-294).
-- The 3x3x3 stencil is 27 dense shifted planes: y +-1 crosses slabs
-  (neighbor block / halo), x +-1 is a sublane roll, z +-1 a lane roll, all
-  with physical-edge masks. No gathers, no atomics — the 2D design's
-  invariants (BIG-sentinel empty slots, bin-local coordinates, lazy rebin
-  cadence with monitored slack) carry over unchanged.
+  one (X, Z) plane per (slot, y-slab), X padded to a multiple of 8 and Z to
+  a multiple of 128 (a padding rule chosen for another machine and awaiting
+  a refit on the GPU), and **y is the outer blocked axis** — the sharded
+  decomposition strips over y exactly like the 2D strip-over-x (the
+  reference's MPI rows, part2/mpi.cpp:258-294).
+- The 3x3x3 stencil is 27 dense shifted planes with physical-edge masks.
+  No gathers, no atomics — the 2D design's invariants (BIG-sentinel empty
+  slots, bin-local coordinates, lazy rebin cadence with monitored slack)
+  carry over unchanged.
 - The 27-direction loss-free rebin shuffle reuses the 2D acceptance design
   (destination-budget acceptance from shared count planes, deterministic
   global priority, rejected leavers defer) — see grid_ops.grid_rebin's
@@ -59,9 +57,10 @@ DIRS3 = [
 STAY3 = 13
 
 
-# Measured at n=16.8M (BASELINE.md r3 phase split): one Mosaic rebin call
-# costs ~0.42 of one force-step call at equal padded volume. Used only to
-# rank candidate geometries against their rebin cadence in for_config.
+# Cost of one rebin relative to one force step at equal padded volume,
+# fitted on another machine and awaiting a refit on the GPU (ROADMAP C4).
+# Used only to rank candidate geometries against their rebin cadence in
+# for_config.
 _REBIN_COST_FACTOR = 0.42
 
 # Auto slot capacity (config.grid3_capacity = None). Base 10 is the r1-r3
@@ -69,17 +68,15 @@ _REBIN_COST_FACTOR = 0.42
 # (run max never exceeds the initial lattice packing there; engines/
 # grid3d.py auto-raises on packing overflow). The attractive LJ tail is
 # different in kind: condensation packs droplets past ANY compilable
-# capacity (the r4 occupancy curves — ab:lj_occupancy_curve rows in
-# bench/results_tpu3d.jsonl — show stored max CLIPPING probe capacities
-# of 15-16 by step ~300 at n=1M and 4.2M, while the 20.97M kernel at
-# effective cap 15 won't even compile: 145 MB scoped VMEM vs 128 physical,
-# 58 MB register spill slots). LJ therefore always runs clipped with the
+# capacity (the recorded occupancy curves show stored max CLIPPING probe
+# capacities of 15-16 by step ~300 at n=1M and 4.2M, and pair work grows
+# as capacity^2). LJ therefore always runs clipped with the
 # loss-free deferral absorbing the excess; what capacity buys is keeping
 # chronic deferral below the drop threshold, and the required floor grows
 # with the number of bins (extreme-value statistics over hot pockets):
 # effective 11 passes at <= 1.09M bins (4.2M parts, 48k deferrals) but
 # DROPS 5 particles at 5.45M bins (20.97M parts), where effective 13
-# passes (deferred 10969, dropped 0, ab:lj_capacity rows). The floor
+# passes (deferred 10969, dropped 0). The floor
 # below encodes exactly that measured boundary; beyond the measured range
 # the engines' drop-detected escalation retry (engines/grid3d.py) is the
 # backstop.
@@ -89,7 +86,7 @@ _LJ_FLOOR_CAPACITY = 13  # measured-safe effective capacity at 5.45M bins
 
 # Speed-tail margin for the auto rebin cadence: collisions heat the
 # velocity tail over a 1000-step run well past the nominal grid3_vmax
-# bound (measured on TPU: max speed 5.21 at n=4.2M / density 7e-6 vs the
+# bound (observed: max speed 5.21 at n=4.2M / density 7e-6 vs the
 # assumed 4.0 — the post-run slack check rejected the cadence-3 run).
 # The cadence is chosen as if speeds reach TAIL * grid3_vmax; the
 # engine's post-run check still verifies against the MEASURED maximum.
@@ -99,8 +96,8 @@ _VMAX_TAIL = 1.5
 @dataclasses.dataclass(frozen=True)
 class Geometry3S:
     ys: int  # y bins (outer blocked axis; the shard-strip axis) — PHYSICAL
-    xs: int  # x bins (sublane axis)
-    zs: int  # z bins (lane axis)
+    xs: int  # x bins (padded to a multiple of 8)
+    zs: int  # z bins (padded to a multiple of 128)
     xs_pad: int
     zs_pad: int
     # Array y extent >= ys (the sharded engine pads to P * ys_local; slabs
@@ -122,10 +119,10 @@ class Geometry3S:
         """Choose the 3D grid geometry for ``config``.
 
         At fixed occupancy the PHYSICAL bin count is invariant — what varies
-        across geometries is lane/sublane padding: (X, Z) planes pad x to
-        multiples of 8 and z to multiples of 128, and a cubic grid's z count
-        (64..163 at the benchmark sizes) wastes up to 2x of every vector
-        lane the step and rebin kernels issue. With ``grid3_snap_lanes`` the
+        across geometries is padding: (X, Z) planes pad x to multiples of 8
+        and z to multiples of 128, and a cubic grid's z count (64..163 at
+        the benchmark sizes) pads up to 2x of every plane the step and
+        rebin passes touch. With ``grid3_snap_lanes`` the
         z bin count snaps to a multiple of 128 (exact-cover bins, bsz =
         size/zs), x to a multiple of 8, and y absorbs the occupancy
         compensation. Candidates that leave less than one auto-cadence step
@@ -175,7 +172,7 @@ class Geometry3S:
             # Capacity headroom for anisotropy: the axis-factorized rebin
             # defers a mover when its destination bin is transiently full,
             # and the per-bin arrival traffic along an axis scales as
-            # 1/bs_axis. Measured on TPU at n=1M (snapped 43x48x128 grid,
+            # 1/bs_axis. Observed at n=1M (snapped 43x48x128 grid,
             # bsz = b0/2): capacity 10 chronically defers ~75 movers/step
             # and eventually drops far-drifters; capacity 12 cuts deferrals
             # 40x and drops to zero. At n=16.8M even a mild ratio of 1.18
@@ -334,9 +331,8 @@ def slab3_from_particles_spill(pos, vel, geom: Geometry3S, depth: float,
     The t=0 lattice at the 20.97M stretch scale packs ONE slot past the
     chooser capacity in ~98k bins while the running rebin absorbs a larger
     instantaneous demand (13-15) loss-free via deferral at that same
-    capacity (bench/results_tpu3d.jsonl "repack_demand" / "rebin_cadence"
-    rows) — so the whole-run capacity raise, and its ~(12/11)^2 lane-work
-    tax, exists only to survive the initial pack. This packer instead moves
+    capacity (recorded demand and cadence runs) — so the whole-run
+    capacity raise, and its ~(12/11)^2 pair-work tax, exists only to survive the initial pack. This packer instead moves
     one boundary-proximate particle per overfull bin into the face-adjacent
     bin it is within ``depth`` of: the resulting state is indistinguishable
     from a mid-run rebin deferral (particle resides one bin off its
@@ -613,7 +609,7 @@ def _axis_pass(state: Slab3State, geom: Geometry3S, evac_cap: int, axis: int,
     # the -1 stream, i.e. the -1-movers AT bin b+1: shift by -d_prev = +1
     # (a wrong sign here makes the two streams insert into the SAME empty
     # slots and silently overwrite each other — caught by the loss monitor
-    # as 1.5M dropped at n=4.2M on the first TPU run).
+    # as 1.5M dropped at n=4.2M on the first run).
     counts_m = jnp.where(alive & (adir == -1), 1.0, 0.0).sum(axis=0)
     off_of = {-1: jnp.zeros_like(F), 1: shift(counts_m, 1, 0.0)}
     for d in (-1, 1):
@@ -662,8 +658,7 @@ def grid3_rebin_axes(state: Slab3State, geom: Geometry3S, evac_cap: int,
     sharded engine's cross-shard hop sees settled in-strip placement).
     Loss-free contract and monitors per the acceptance design in
     grid_ops.grid_rebin's docstring. (An unfactorized 27-direction
-    shuffle variant was the recorded 2.3x-slower ablation, BASELINE.md;
-    removed once the Mosaic kernels made the factorized form canonical.)
+    shuffle variant was removed; the factorized form is canonical.)
 
     The passes run through a ``lax.scan`` over a ``lax.switch`` of the
     three per-axis bodies so XLA's peak temporary footprint is ONE pass,
@@ -691,8 +686,8 @@ def grid3_rebin_axes(state: Slab3State, geom: Geometry3S, evac_cap: int,
         jnp.array([1, 2, 0], jnp.int32),  # x, z, y
     )
     # deferred = residual movers after all passes (post-hoc — the same
-    # definition the Mosaic wrappers and the 2D variants use, so monitor
-    # values are comparable across every rebin implementation)
+    # definition the 2D variants use, so monitor values are comparable
+    # across every rebin implementation)
     dy2, dx2, dz2, _, alive2 = slab3_dirs(state, geom, y0=y0)
     deferred = (
         (alive2 & ((dy2 != 0) | (dx2 != 0) | (dz2 != 0))).astype(jnp.int32).sum()

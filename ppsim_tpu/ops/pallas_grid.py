@@ -1,35 +1,32 @@
-"""Mosaic (Pallas TPU) kernels for the slab-grid force and fused step.
+"""Pallas kernel (Triton route) for the slab-grid fused force+move step.
 
 The force phase is 75% of the reference's step time (part3 write-up §6
 nvprof: ``compute_forces_gpu`` 74.85%), so it gets the hand-written kernel —
-the TPU-native analog of part3/gpu.cu:115-142's thread-per-bin CUDA kernel.
+the analog of part3/gpu.cu:115-142's thread-per-bin CUDA kernel, with each
+element of a program's tile playing the role of one CUDA thread's bin.
 
 Formulation: state fields are (capacity, R, C) slot-slab planes with
-bin-local positions (see :mod:`ppsim_tpu.ops.grid_ops`). The kernel walks the
-grid in row blocks. Neighbor access is entirely in-kernel:
+bin-local positions (see :mod:`ppsim_tpu.ops.grid_ops`). Each program owns a
+``(TILE_ROWS, TILE_COLS)`` tile of bins and writes only its own bins, so the
+kernel needs no atomics and is deterministic:
 
-- columns +-1 are lane rolls;
-- rows +-1 are sublane rolls within the block, with the single block-edge
-  row patched in from the adjacent row block, which arrives as an extra
-  BlockSpec on the SAME input array (index maps i / i+1 / i+2 into a
-  one-block-padded copy). Pallas streams those blocks straight from HBM.
+- the tile's own ``capacity`` slots (positions, velocities) are loaded once
+  and stay in registers beside ``2 x capacity`` acceleration accumulators;
+- the 3x3 neighbourhood is read slot by slot with masked loads from the
+  full arrays (``other=BIG``: off-grid neighbours are empty slots, exactly
+  the XLA twin's ``_shifted`` fill). Ghost rows from the sharded engine's
+  halo exchange stand in for rows -1 and R;
+- every pair is evaluated from both sides (9 x cap^2 pair evaluations per
+  bin, the reference's one-way scheme), so no program writes another's bins;
+- the Verlet move and wall reflection run on the accumulators in registers,
+  and the kernel emits the per-bin max |v|^2 plane for the stale-slack
+  monitor.
 
-An earlier revision had the caller materialize three row-shifted copies of
-each field per step ("row_views"); profiling showed those XLA shift-copies
-(unaligned on the sublane dim) cost MORE than the kernel itself (~6.7 vs
-~5.1 ms/step at n=4.2M) — moving the shifts into the kernel as sublane rolls
-removed that entire cost.
+Empty slots hold the ``BIG`` sentinel and fail the cutoff test like any far
+particle; slot aliveness is derived from that same sentinel, so the pid
+planes never enter the kernel.
 
-All ``capacity^2 x 9`` slab-pair interactions are dense full-tile VPU ops —
-no gathers, no atomics. Empty slots hold the ``BIG`` sentinel and fail the
-cutoff test like any far particle; slot aliveness is derived from that same
-sentinel, so the pid planes never enter the hot kernel.
-
-:func:`grid_step_pallas` fuses the Verlet move + wall reflection into the
-force kernel (the integrator runs while the accelerations are still in
-VMEM). It optionally takes neighbor ghost rows and a global-row offset,
-which is all the sharded engine needs to run the same kernel per shard —
-ghost rows arrive by ``lax.ppermute`` instead of the BIG fill.
+The XLA twin is ``grid_ops.grid_force_xla`` followed by ``grid_ops.grid_move``.
 """
 
 from __future__ import annotations
@@ -40,54 +37,47 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ppsim_tpu.ops.binning import BIG
 from ppsim_tpu.ops.grid_ops import SlabGeometry
 
-__all__ = ["grid_force_pallas", "grid_step_pallas", "block_ext"]
+__all__ = ["grid_step_pallas", "require_gpu", "TILE_ROWS", "TILE_COLS",
+           "NUM_WARPS"]
+
+# Tile of bins per program and warps per program. Triton blocks are powers
+# of two; at capacity 14 a thread holds 4 x capacity live values per bin it
+# owns (positions and accumulators), so register pressure bounds the tile.
+TILE_ROWS = 4
+TILE_COLS = 32
+NUM_WARPS = 4
 
 
-def _pick_row_block(geom: SlabGeometry, nplanes: int, rows: int) -> int:
-    # Mosaic requires the block's second-minor dim divisible by 8 (or the
-    # full dimension); the raised vmem_limit_bytes covers the footprint.
-    return 8 if rows % 8 == 0 else rows
+def require_gpu(interpret: bool) -> None:
+    """Refuse to build a kernel engine that could only run interpreted.
 
-
-def block_ext(f, fill, br: int, ghost_top=None, ghost_bot=None):
-    """Pad ``f`` (cap, R, C) by one ``br``-row block on each side.
-
-    The pad blocks are ``fill`` except their inner edge row, which carries
-    the optional (cap, 1, C) neighbor ghost row (sharded halo). This is the
-    only XLA-side copy the kernels need — a row-aligned concatenate, NOT a
-    row-shifted one (shifted copies break sublane tiling and are ~10x
-    slower than the kernel consuming them).
-    """
-    cap, R, C = f.shape
-    edge_top = ghost_top if ghost_top is not None else jnp.full(
-        (cap, 1, C), fill, f.dtype)
-    edge_bot = ghost_bot if ghost_bot is not None else jnp.full(
-        (cap, 1, C), fill, f.dtype)
-    parts = []
-    if br > 1:
-        pad = jnp.full((cap, br - 1, C), fill, f.dtype)
-        parts = [pad, edge_top, f, edge_bot, pad]
-    else:
-        parts = [edge_top, f, edge_bot]
-    return jnp.concatenate(parts, axis=1)
+    The kernel is compiled by Triton for an NVIDIA GPU. Anywhere else it
+    runs only in the Pallas interpreter, which must be asked for
+    explicitly (``interpret=True``, as the CPU tests do)."""
+    platform = jax.default_backend()
+    if not interpret and platform != "gpu":
+        raise RuntimeError(
+            f"the Triton step kernel needs an NVIDIA GPU, but JAX's default "
+            f"backend is {platform!r}; pass interpret=True (CLI: "
+            "--interpret) to run it in the Pallas interpreter, or use the "
+            "XLA engines (grid, sharded_grid impl='xla')")
 
 
 def _pair_coef(r2, cutoff, min_r, mass, law, law_params):
-    """Pair coefficient plane: acceleration contribution = coef * (dx, dy).
+    """Pair coefficient: acceleration contribution = coef * (dx, dy).
 
-    The force-law seam of the Mosaic kernels — the same plug-in point the
-    reference isolates as ``apply_force`` (part1/serial.cpp:19-36) and the
-    XLA engines expose via physics.accel_fn_for. ``law``/``law_params`` are
-    static, so each law compiles to its own straight-line VPU code:
+    The force-law seam of the kernel — the plug-in point the reference
+    isolates as ``apply_force`` (part1/serial.cpp:19-36) and the XLA engines
+    expose via physics.accel_fn_for. ``law``/``law_params`` are static, so
+    each law compiles to its own straight-line code:
 
     - ``"repulsive"``: coef = (1 - cutoff/r) / r^2 / mass, factored as
-      u - cutoff*(rinv*u) with u = rinv^2/mass — two multiplies and an FMA
-      past the rsqrt (this body runs 9*cap^2 times per bin, every op counts).
+      u - cutoff*(rinv*u) with u = rinv^2/mass.
     - ``"lj"``: truncated Lennard-Jones,
       coef = -24 eps (2 (sigma/r)^12 - (sigma/r)^6) / r^2 / mass
       (physics.lj_coef_from_r2 twin), ``law_params = (eps, sigma)``.
@@ -113,490 +103,145 @@ def _pair_coef(r2, cutoff, min_r, mass, law, law_params):
     return jnp.where(r2 <= c2, coef, 0.0)
 
 
-def _neighbor_slab(j, dr, x0_ref, xt_ref, xb_ref, row_top, row_bot, br):
-    """Slab j of the row-(r+dr) neighbor, as a (br, C) plane.
-
-    dr=0 is the block itself; dr=+-1 is a sublane roll with the one
-    block-edge row patched from the adjacent block (xt = block above,
-    xb = block below).
-    """
-    if dr == 0:
-        return x0_ref[j]
-    if dr == -1:
-        rolled = pltpu.roll(x0_ref[j], 1, 0)
-        edge = xt_ref[j][br - 1 : br, :]  # last row of the block above
-        return jnp.where(row_top, edge, rolled)
-    rolled = pltpu.roll(x0_ref[j], (br - 1) % max(br, 1), 0)
-    edge = xb_ref[j][0:1, :]  # first row of the block below
-    return jnp.where(row_bot, edge, rolled)
+def _reflect(local, off, v, L):
+    """Wall reflection of one axis (grid_ops.grid_move's ``reflect``)."""
+    g = local + off
+    out = (g < 0.0) | (g > L)
+    m = jnp.mod(g, 2.0 * L)
+    local = jnp.where(out, (L - jnp.abs(m - L)) - off, local)
+    v = jnp.where(out & (m > L), -v, v)
+    return local, v
 
 
-def _accum_pairs(x0_ref, y0_ref, xt_ref, xb_ref, yt_ref, yb_ref,
-                 add_fn, *, cap, cols, br, geom, cutoff, min_r, mass,
-                 law, law_params, unroll_j: bool):
-    """The 3x3 x cap^2 slab-pair accumulation loop shared by both kernels.
+def _step_kernel(x_ref, y_ref, vx_ref, vy_ref, row0_ref, *rest, cap, br, bc,
+                 bin_size, cutoff, min_r, mass, dt, size, law, law_params,
+                 has_ghosts):
+    gxt, gyt, gxb, gyb = rest[:4] if has_ghosts else (None,) * 4
+    xo_ref, yo_ref, vxo_ref, vyo_ref, spo_ref = rest[4 if has_ghosts else 0:]
+    R, C = x_ref.shape[1], x_ref.shape[2]
+    r0 = pl.program_id(0) * br
+    c0 = pl.program_id(1) * bc
+    rows = r0 + jax.lax.broadcasted_iota(jnp.int32, (br, bc), 0)
+    cols = c0 + jax.lax.broadcasted_iota(jnp.int32, (br, bc), 1)
+    inside = (rows < R) & (cols < C)
+    own = (pl.ds(r0, br), pl.ds(c0, bc))
 
-    ``add_fn(s, dax, day)`` receives each self-slot's contribution planes.
-    Op-count discipline (the innermost body runs 9*cap^2 times per bin):
-    neighbor offsets are hoisted out of the self-slot loop, the edge masks
-    out of the j loop; the per-pair coefficient comes from _pair_coef.
-    """
-    shape = x0_ref.shape[1:]
-    lane = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-    row = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
-    row_top = row == 0
-    row_bot = row == (br - 1)
-    bad_of = {1: lane == (cols - 1), -1: lane == 0}
+    def load_own(ref, s, fill):
+        return plgpu.load(ref.at[(s,) + own], mask=inside, other=fill)
 
+    xs = [load_own(x_ref, s, BIG) for s in range(cap)]
+    ys = [load_own(y_ref, s, BIG) for s in range(cap)]
+    bs = jnp.float32(bin_size)
+
+    def neighbour(ref, top_ref, bot_ref, j, nrows, ncols, col_ok):
+        """Slot j of the neighbour bins at (nrows, ncols); off-grid -> BIG.
+        Rows -1 and R come from the ghost rows when the caller has them."""
+        val = plgpu.load(ref.at[j, nrows, ncols],
+                         mask=col_ok & (nrows >= 0) & (nrows < R), other=BIG)
+        if has_ghosts:
+            zero = jnp.zeros_like(nrows)
+            top = plgpu.load(top_ref.at[j, zero, ncols],
+                             mask=col_ok & (nrows == -1), other=BIG)
+            bot = plgpu.load(bot_ref.at[j, zero, ncols],
+                             mask=col_ok & (nrows == R), other=BIG)
+            val = jnp.where(nrows == -1, top, jnp.where(nrows == R, bot, val))
+        return val
+
+    acc = tuple(jnp.zeros((br, bc), jnp.float32) for _ in range(2 * cap))
     for dr in (-1, 0, 1):
-        offx = jnp.float32(dr * geom.bin_size)
-
-        def j_body(j, _, dr=dr, offx=offx):
-            xj = _neighbor_slab(j, dr, x0_ref, xt_ref, xb_ref, row_top, row_bot, br)
-            yj = _neighbor_slab(j, dr, y0_ref, yt_ref, yb_ref, row_top, row_bot, br)
-            for dc in (-1, 0, 1):
-                if dc == 0:
-                    xn, yn = xj, yj
-                else:
-                    sh = (-dc) % cols
-                    xn = pltpu.roll(xj, sh, 1)
-                    yn = pltpu.roll(yj, sh, 1)
-                    xn = jnp.where(bad_of[dc], BIG, xn)
-                xno = xn if dr == 0 else xn + offx
-                yno = yn if dc == 0 else yn + jnp.float32(dc * geom.bin_size)
-                for s in range(cap):
-                    dx = xno - x0_ref[s]
-                    dy = yno - y0_ref[s]
-                    r2 = dx * dx + dy * dy
-                    coef = _pair_coef(r2, cutoff, min_r, mass, law, law_params)
-                    add_fn(s, coef * dx, coef * dy)
-            return 0
-
-        if unroll_j:
-            for j in range(cap):
-                j_body(j, 0)
-        else:
-            # fori_loop keeps Mosaic's per-value stack bounded at wide grids
-            # (full unroll observed at 173MB VMEM at 1920 lanes).
-            jax.lax.fori_loop(0, cap, j_body, 0)
-
-
-def _force_kernel(x_ref, xt_ref, xb_ref, y_ref, yt_ref, yb_ref,
-                  ax_ref, ay_ref, *, cap, cols, br, geom,
-                  cutoff, min_r, mass, law, law_params):
-    ax = [jnp.zeros(x_ref.shape[1:], jnp.float32) for _ in range(cap)]
-    ay = [jnp.zeros(x_ref.shape[1:], jnp.float32) for _ in range(cap)]
-
-    def add(s, dax, day):
-        ax[s] = ax[s] + dax
-        ay[s] = ay[s] + day
-
-    _accum_pairs(x_ref, y_ref, xt_ref, xb_ref, yt_ref, yb_ref, add,
-                 cap=cap, cols=cols, br=br, geom=geom, cutoff=cutoff,
-                 min_r=min_r, mass=mass, law=law, law_params=law_params,
-                 unroll_j=True)
-    for s in range(cap):
-        ax_ref[s] = ax[s]
-        ay_ref[s] = ay[s]
-
-
-def _halo_specs(cap, br, C):
-    """(main, top, bottom) BlockSpecs into a one-block-padded array."""
-    main = pl.BlockSpec((cap, br, C), lambda i: (0, i + 1, 0),
-                        memory_space=pltpu.VMEM)
-    top = pl.BlockSpec((cap, br, C), lambda i: (0, i, 0),
-                       memory_space=pltpu.VMEM)
-    bot = pl.BlockSpec((cap, br, C), lambda i: (0, i + 2, 0),
-                       memory_space=pltpu.VMEM)
-    return main, top, bot
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("geom", "cutoff", "min_r", "mass", "interpret",
-                     "law", "law_params"),
-)
-def grid_force_pallas(xl, yl, geom: SlabGeometry, cutoff, min_r, mass,
-                      interpret=False, law="repulsive", law_params=()):
-    """Force-only kernel (accelerations out); single-chip convenience API."""
-    cap = geom.capacity
-    R, C = xl.shape[1], geom.cols_pad
-    br = _pick_row_block(geom, nplanes=8 * cap, rows=R)
-    xe = block_ext(xl, BIG, br)
-    ye = block_ext(yl, BIG, br)
-    main, top, bot = _halo_specs(cap, br, C)
-    spec = pl.BlockSpec((cap, br, C), lambda i: (0, i, 0),
-                        memory_space=pltpu.VMEM)
-    kernel = functools.partial(
-        _force_kernel, cap=cap, cols=C, br=br, geom=geom,
-        cutoff=cutoff, min_r=min_r, mass=mass, law=law, law_params=law_params,
-    )
-    ax, ay = pl.pallas_call(
-        kernel,
-        grid=(R // br,),
-        in_specs=[main, top, bot] * 2,
-        out_specs=[spec] * 2,
-        out_shape=[jax.ShapeDtypeStruct((cap, R, C), jnp.float32)] * 2,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=R * C * cap * cap * 9 * 14,
-            bytes_accessed=R * C * cap * 4 * 8,
-            transcendentals=R * C * cap * cap * 9,
-        ),
-    )(xe, xe, xe, ye, ye, ye)
-    return ax, ay
-
-
-def _col_off_of(gcol_ref, shape, bs):
-    """Per-lane global-col offset plane for the move tail's wall reflection.
-
-    ``gcol_ref`` is None on the single-chip / row-strip paths (lane index ==
-    global col, computed in-kernel); the 2-D tile mesh passes a global-col
-    plane because its shards' lane 0 sits at ``col0 - ghost_lanes``."""
-    if gcol_ref is None:
-        lane = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-        return lane.astype(jnp.float32) * bs
-    return gcol_ref[...].astype(jnp.float32) * bs
-
-
-def _move_tail(x_ref, y_ref, vx_ref, vy_ref, ax_ref, ay_ref,
-               xo_ref, yo_ref, vxo_ref, vyo_ref, spo_ref,
-               *, cap, dtf, L, row_off, col_off):
-    """Verlet + wall reflection on the accumulated accelerations (shared by
-    both step-kernel variants; reference: serial.cpp:44-61).
-
-    ``spo_ref`` receives the per-bin max of |v|^2 over slots — the
-    ``max_speed`` stale-slack monitor's input, folded in here because the
-    velocities are already in VMEM (an XLA reduction over the kernel's
-    outputs would re-read 2 x cap planes from HBM every step)."""
-    sp = jnp.zeros(x_ref.shape[1:], jnp.float32)
-    for s in range(cap):
-        alive = x_ref[s] < jnp.float32(0.5 * BIG)
-        vx = jnp.where(alive, vx_ref[s] + ax_ref[s] * dtf, 0.0)
-        vy = jnp.where(alive, vy_ref[s] + ay_ref[s] * dtf, 0.0)
-        xl = x_ref[s] + vx * dtf
-        yl = y_ref[s] + vy * dtf
-
-        gx = xl + row_off
-        out = (gx < 0.0) | (gx > L)
-        mfold = jnp.mod(gx, 2.0 * L)
-        xl = jnp.where(out, (L - jnp.abs(mfold - L)) - row_off, xl)
-        vx = jnp.where(out & (mfold > L), -vx, vx)
-
-        gy = yl + col_off
-        out = (gy < 0.0) | (gy > L)
-        mfold = jnp.mod(gy, 2.0 * L)
-        yl = jnp.where(out, (L - jnp.abs(mfold - L)) - col_off, yl)
-        vy = jnp.where(out & (mfold > L), -vy, vy)
-
-        xo_ref[s] = jnp.where(alive, xl, BIG)
-        yo_ref[s] = jnp.where(alive, yl, BIG)
-        vxo_ref[s] = vx
-        vyo_ref[s] = vy
-        # dead slots hold vx = vy = 0, matching grid_ops.grid_move's
-        # alive-masked speed2 exactly
-        sp = jnp.maximum(sp, vx * vx + vy * vy)
-    spo_ref[...] = sp
-
-
-def _step_kernel_asym(x_ref, xt_ref, xb_ref, y_ref, yt_ref, yb_ref,
-                      vx_ref, vy_ref, grow_ref, *rest,
-                      cap, cols, br, geom: SlabGeometry,
-                      cutoff, min_r, mass, dt, size, law, law_params,
-                      has_gcol=False):
-    """Asymmetric (reference-style one-way) fused step: every pair evaluated
-    from both sides, 9 x cap^2 slab-pair planes per bin. Kept as the
-    A/B-able twin of the symmetric kernel (relay throughput varies ~2x
-    between sessions, so variants must be timed in ONE process)."""
-    gcol_ref = rest[0] if has_gcol else None
-    (xo_ref, yo_ref, vxo_ref, vyo_ref, spo_ref,
-     ax_ref, ay_ref) = rest[1 if has_gcol else 0:]
-    dtf = jnp.float32(dt)
-    L = jnp.float32(size)
-    bs = jnp.float32(geom.bin_size)
-    row_off = grow_ref[...].astype(jnp.float32) * bs
-    col_off = _col_off_of(gcol_ref, x_ref.shape[1:], bs)
-
-    for s in range(cap):
-        ax_ref[s] = jnp.zeros_like(ax_ref[s])
-        ay_ref[s] = jnp.zeros_like(ay_ref[s])
-
-    def add(s, dax, day):
-        ax_ref[s] = ax_ref[s] + dax
-        ay_ref[s] = ay_ref[s] + day
-
-    _accum_pairs(x_ref, y_ref, xt_ref, xb_ref, yt_ref, yb_ref, add,
-                 cap=cap, cols=cols, br=br, geom=geom, cutoff=cutoff,
-                 min_r=min_r, mass=mass, law=law, law_params=law_params,
-                 unroll_j=False)
-    _move_tail(x_ref, y_ref, vx_ref, vy_ref, ax_ref, ay_ref,
-               xo_ref, yo_ref, vxo_ref, vyo_ref, spo_ref,
-               cap=cap, dtf=dtf, L=L, row_off=row_off, col_off=col_off)
-
-
-def _step_kernel(x_ref, xt_ref, xb_ref, y_ref, yt_ref, yb_ref,
-                 vx_ref, vy_ref, grow_ref, *rest,
-                 cap, cols, br, geom: SlabGeometry,
-                 cutoff, min_r, mass, dt, size, law, law_params,
-                 has_gcol=False):
-    """Fused symmetric force + Verlet move + wall reflection (one pass/step).
-
-    Unlike the reference (which deliberately skips Newton's-third-law
-    symmetry — part1 write-up p.9 lists it as future work), each pair is
-    evaluated ONCE and its force applied to both particles, nearly halving
-    the pair math (cap=11: 55 + 4*121 = 539 pair planes per bin vs the
-    asymmetric scheme's 9*121 = 1089):
-
-    - same-bin pairs: triangular loop j > s, +f to s and -f to j in place;
-    - east (dc=+1) and south (dr=+1, dc in -1/0/1) neighbors: evaluate at
-      the self bin, add +f to self, lane/sublane-roll the -f plane onto the
-      neighbor's accumulator. West and north directions vanish by symmetry.
-
-    Row-crossing scatters (row br-1 -> next block's row 0) ride the
-    ``spill_*`` VMEM scratch: Pallas TPU executes the grid sequentially, so
-    block i writes the spill and block i+1 folds it into its accumulator
-    init. Forces on the TOP ghost row's owners cannot be scattered across
-    the shard boundary, so block 0 evaluates one extra self-side-only
-    direction against the ghost row (both shards do this symmetrically —
-    the cross-shard edge pairs are the only ones still computed twice,
-    exactly the reference's MPI halo discipline, part2/mpi.cpp:93-146).
-
-    The integrator (reference: serial.cpp:44-61) then runs on the
-    accumulated accelerations while they are still in VMEM. ``grow_ref``
-    carries each bin's global row index (shard offset included). Slot
-    aliveness is derived from the position sentinel (dead slots hold exactly
-    ``BIG``); empty slots as neighbors sit beyond the cutoff so both their
-    direct and scattered contributions vanish identically.
-
-    Accelerations accumulate into the ``ax_ref/ay_ref`` VMEM scratch rather
-    than SSA values: Mosaic's allocator keeps every live plane on the kernel
-    stack, and ``4 x capacity`` live accumulator planes blow past the chip's
-    128MB VMEM at wide grids.
-
-    2-D tile shards (engines/sharded_tile.py) run this same kernel on
-    COL-EXTENDED arrays whose ghost-lane blocks carry the lateral
-    neighbors' boundary cols: the symmetric scatter structure then covers
-    every cross-col-boundary pair for free — a ghost lane's own east/south
-    evaluations scatter the reaction forces onto the interior lanes, and
-    the interior edge lanes' evaluations see the ghost data directly. The
-    only addition the tile path needs is ``has_gcol`` (a global-col plane
-    for the move tail, since shard lane 0 is not global col 0).
-    """
-    gcol_ref = rest[0] if has_gcol else None
-    (xo_ref, yo_ref, vxo_ref, vyo_ref, spo_ref,
-     ax_ref, ay_ref, spill_ax_ref, spill_ay_ref) = rest[1 if has_gcol else 0:]
-    i = pl.program_id(0)
-    dtf = jnp.float32(dt)
-    L = jnp.float32(size)
-    bs = jnp.float32(geom.bin_size)
-    shape = x_ref.shape[1:]
-    lane = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-    row = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
-    row_top = row == 0
-    row_bot = row == (br - 1)
-    bad_of = {1: lane == (cols - 1), -1: lane == 0}
-    row_off = grow_ref[...].astype(jnp.float32) * bs
-    col_off = _col_off_of(gcol_ref, shape, bs)
-
-    def pair(xn, yn, s):
-        """(+fx, +fy) on self slot s from a neighbor plane at (xn, yn)."""
-        dx = xn - x_ref[s]
-        dy = yn - y_ref[s]
-        r2 = dx * dx + dy * dy
-        coef = _pair_coef(r2, cutoff, min_r, mass, law, law_params)
-        return coef * dx, coef * dy
-
-    # 0) init accumulators; row 0 inherits the spill scattered by block i-1
-    use_spill = i > 0
-    for s in range(cap):
-        ax_ref[s] = jnp.where(row_top & use_spill, spill_ax_ref[s], 0.0)
-        ay_ref[s] = jnp.where(row_top & use_spill, spill_ay_ref[s], 0.0)
-
-    # 1) same-bin triangle (j > s): one evaluation, both sides updated
-    for jj in range(1, cap):
-        for s in range(jj):
-            fx, fy = pair(x_ref[jj], y_ref[jj], s)
-            ax_ref[s] = ax_ref[s] + fx
-            ay_ref[s] = ay_ref[s] + fy
-            ax_ref[jj] = ax_ref[jj] - fx
-            ay_ref[jj] = ay_ref[jj] - fy
-
-    # 2) east neighbor (dr=0, dc=+1), symmetric via lane-roll scatter
-    def east_body(j, _):
-        xn = pltpu.roll(x_ref[j], cols - 1, 1)
-        xn = jnp.where(bad_of[1], BIG, xn)
-        yn = pltpu.roll(y_ref[j], cols - 1, 1) + bs
-        tax = jnp.zeros(shape, jnp.float32)
-        tay = jnp.zeros(shape, jnp.float32)
-        for s in range(cap):
-            fx, fy = pair(xn, yn, s)
-            ax_ref[s] = ax_ref[s] + fx
-            ay_ref[s] = ay_ref[s] + fy
-            tax = tax - fx
-            tay = tay - fy
-        # contribution to lane c+1 sits at lane c: scatter = roll by +1
-        ax_ref[j] = ax_ref[j] + pltpu.roll(tax, 1, 1)
-        ay_ref[j] = ay_ref[j] + pltpu.roll(tay, 1, 1)
-        return 0
-
-    jax.lax.fori_loop(0, cap, east_body, 0)
-
-    # 3) south row (dr=+1, dc in -1/0/1), symmetric via roll + block spill
-    def south_body(j, _):
-        rolled = pltpu.roll(x_ref[j], (br - 1) % max(br, 1), 0)
-        xj = jnp.where(row_bot, xb_ref[j][0:1, :], rolled)
-        rolled = pltpu.roll(y_ref[j], (br - 1) % max(br, 1), 0)
-        yj = jnp.where(row_bot, yb_ref[j][0:1, :], rolled)
-        scat_x = jnp.zeros(shape, jnp.float32)
-        scat_y = jnp.zeros(shape, jnp.float32)
         for dc in (-1, 0, 1):
-            if dc == 0:
-                xn, yn = xj, yj
-            else:
-                sh = (-dc) % cols
-                xn = pltpu.roll(xj, sh, 1)
-                xn = jnp.where(bad_of[dc], BIG, xn)
-                yn = pltpu.roll(yj, sh, 1) + jnp.float32(dc) * bs
-            xn = xn + bs  # dr=+1 row offset
-            tax = jnp.zeros(shape, jnp.float32)
-            tay = jnp.zeros(shape, jnp.float32)
-            for s in range(cap):
-                fx, fy = pair(xn, yn, s)
-                ax_ref[s] = ax_ref[s] + fx
-                ay_ref[s] = ay_ref[s] + fy
-                tax = tax - fx
-                tay = tay - fy
-            if dc != 0:
-                tax = pltpu.roll(tax, dc % cols, 1)
-                tay = pltpu.roll(tay, dc % cols, 1)
-            scat_x = scat_x + tax
-            scat_y = scat_y + tay
-        # contribution to row r+1 sits at row r: in-block rows shift down by
-        # one; the last row's plane goes to the next block via the spill.
-        rolled = pltpu.roll(scat_x, 1, 0)
-        ax_ref[j] = ax_ref[j] + jnp.where(row_top, 0.0, rolled)
-        spill_ax_ref[j] = scat_x[br - 1 : br, :]
-        rolled = pltpu.roll(scat_y, 1, 0)
-        ay_ref[j] = ay_ref[j] + jnp.where(row_top, 0.0, rolled)
-        spill_ay_ref[j] = scat_y[br - 1 : br, :]
-        return 0
+            nrows = rows + dr
+            ncols = cols + dc
+            col_ok = (ncols >= 0) & (ncols < C)
+            offx = jnp.float32(dr * bin_size)
+            offy = jnp.float32(dc * bin_size)
 
-    jax.lax.fori_loop(0, cap, south_body, 0)
-
-    # 4) top ghost row (block 0 only): self-side forces from the row above
-    # the strip — the shard boundary's twice-computed halo pairs (single-chip
-    # runs see the BIG fill here and accumulate exact zeros).
-    @pl.when(i == 0)
-    def _():
-        def ghost_body(j, _):
-            gx = jnp.where(row_top, xt_ref[j][br - 1 : br, :], BIG)
-            gy = jnp.where(row_top, yt_ref[j][br - 1 : br, :], 0.0)
-            for dc in (-1, 0, 1):
-                if dc == 0:
-                    xn, yn = gx, gy
-                else:
-                    sh = (-dc) % cols
-                    xn = pltpu.roll(gx, sh, 1)
-                    xn = jnp.where(bad_of[dc], BIG, xn)
-                    yn = pltpu.roll(gy, sh, 1) + jnp.float32(dc) * bs
-                xn = xn - bs  # dr=-1 row offset
+            def body(j, acc, nrows=nrows, ncols=ncols, col_ok=col_ok,
+                     offx=offx, offy=offy):
+                xn = neighbour(x_ref, gxt, gxb, j, nrows, ncols, col_ok) + offx
+                yn = neighbour(y_ref, gyt, gyb, j, nrows, ncols, col_ok) + offy
+                out = list(acc)
                 for s in range(cap):
-                    fx, fy = pair(xn, yn, s)
-                    ax_ref[s] = ax_ref[s] + fx
-                    ay_ref[s] = ay_ref[s] + fy
-            return 0
+                    dx = xn - xs[s]
+                    dy = yn - ys[s]
+                    coef = _pair_coef(dx * dx + dy * dy, cutoff, min_r, mass,
+                                      law, law_params)
+                    out[s] = out[s] + coef * dx
+                    out[cap + s] = out[cap + s] + coef * dy
+                return tuple(out)
 
-        jax.lax.fori_loop(0, cap, ghost_body, 0)
+            acc = jax.lax.fori_loop(0, cap, body, acc)
 
-    _move_tail(x_ref, y_ref, vx_ref, vy_ref, ax_ref, ay_ref,
-               xo_ref, yo_ref, vxo_ref, vyo_ref, spo_ref,
-               cap=cap, dtf=dtf, L=L, row_off=row_off, col_off=col_off)
+    # Verlet + wall reflection on the accumulators (reference:
+    # serial.cpp:44-61; XLA twin: grid_ops.grid_move).
+    dtf = jnp.float32(dt)
+    L = jnp.float32(size)
+    row_off = (row0_ref[0] + rows).astype(jnp.float32) * bs
+    col_off = cols.astype(jnp.float32) * bs
+    sp = jnp.zeros((br, bc), jnp.float32)
+    for s in range(cap):
+        alive = xs[s] < jnp.float32(0.5 * BIG)
+        vx = jnp.where(alive, load_own(vx_ref, s, 0.0) + acc[s] * dtf, 0.0)
+        vy = jnp.where(alive, load_own(vy_ref, s, 0.0) + acc[cap + s] * dtf,
+                       0.0)
+        xl, vx = _reflect(xs[s] + vx * dtf, row_off, vx, L)
+        yl, vy = _reflect(ys[s] + vy * dtf, col_off, vy, L)
+        plgpu.store(xo_ref.at[(s,) + own], jnp.where(alive, xl, BIG),
+                    mask=inside)
+        plgpu.store(yo_ref.at[(s,) + own], jnp.where(alive, yl, BIG),
+                    mask=inside)
+        plgpu.store(vxo_ref.at[(s,) + own], vx, mask=inside)
+        plgpu.store(vyo_ref.at[(s,) + own], vy, mask=inside)
+        # dead slots hold vx = vy = 0, matching grid_move's alive-masked
+        # speed2 exactly
+        sp = jnp.maximum(sp, vx * vx + vy * vy)
+    plgpu.store(spo_ref.at[own], sp, mask=inside)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("geom", "cutoff", "min_r", "mass", "dt", "size",
-                     "interpret", "law", "law_params", "symmetric"),
+                     "interpret", "law", "law_params"),
 )
 def grid_step_pallas(xl, yl, vx, vy, geom: SlabGeometry,
                      cutoff, min_r, mass, dt, size, interpret=False,
-                     row0=None, col0=None,
-                     ghosts: Optional[Tuple] = None,
-                     law="repulsive", law_params=(), symmetric=True):
+                     row0=None, ghosts: Optional[Tuple] = None,
+                     law="repulsive", law_params=()):
     """Fused force+move step. Returns (xl', yl', vx', vy', speed2) where
     ``speed2`` is an (R, C) plane of per-bin max |v|^2 over slots — reduce
     with ``jnp.sqrt(speed2.max())`` for the stale-slack monitor (computed
-    in-kernel so the monitor costs no extra HBM pass over the velocities).
+    in-kernel so the monitor costs no extra pass over the velocities).
 
-    ``row0``: traced global row index of this array's first row (sharded
-    engine passes ``axis_index * rows_local``; default 0).
-    ``col0``: traced global col index of lane 0 — ONLY the 2-D tile engine
-    passes this (its shards run on col-extended arrays whose lane 0 is a
-    ghost lane); when None, lane index == global col and no extra input
-    plane is spent.
+    ``row0``: traced global row index of this array's first row (the
+    sharded engine passes ``axis_index * rows_local``; default 0).
     ``ghosts``: optional (top_xl, top_yl, bot_xl, bot_yl), each (cap, 1, C) —
-    neighbor boundary rows for the force stencil (sharded halo exchange).
-    ``symmetric``: Newton's-third-law kernel (default) vs the two-sided
-    reference-style evaluation (A/B benchmarking).
+    the neighbour strips' boundary rows (sharded halo exchange); without
+    them rows -1 and R are empty.
+    Any array shape works: edge tiles are masked.
     """
     cap = geom.capacity
-    R, C = xl.shape[1], geom.cols_pad
-    br = _pick_row_block(geom, nplanes=14 * cap + 1, rows=R)
-
-    if ghosts is None:
-        xe = block_ext(xl, BIG, br)
-        ye = block_ext(yl, BIG, br)
-    else:
-        top_xl, top_yl, bot_xl, bot_yl = ghosts
-        xe = block_ext(xl, BIG, br, top_xl, bot_xl)
-        ye = block_ext(yl, BIG, br, top_yl, bot_yl)
-
-    base = 0 if row0 is None else row0
-    grow = base + jax.lax.broadcasted_iota(jnp.int32, (R, C), 0)
-    has_gcol = col0 is not None
-    extra_in = []
-    if has_gcol:
-        extra_in = [col0 + jax.lax.broadcasted_iota(jnp.int32, (R, C), 1)]
-
-    main, top, bot = _halo_specs(cap, br, C)
-    spec = pl.BlockSpec((cap, br, C), lambda i: (0, i, 0),
-                        memory_space=pltpu.VMEM)
-    gspec = pl.BlockSpec((br, C), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    _, R, C = xl.shape
+    br, bc = TILE_ROWS, TILE_COLS
+    row0 = jnp.zeros((1,), jnp.int32) + (0 if row0 is None else row0)
+    extra = list(ghosts) if ghosts is not None else []
     kernel = functools.partial(
-        _step_kernel if symmetric else _step_kernel_asym,
-        cap=cap, cols=C, br=br, geom=geom,
+        _step_kernel, cap=cap, br=br, bc=bc, bin_size=geom.bin_size,
         cutoff=cutoff, min_r=min_r, mass=mass, dt=dt, size=size,
-        law=law, law_params=law_params, has_gcol=has_gcol,
+        law=law, law_params=law_params, has_ghosts=ghosts is not None,
     )
-    scratch = [
-        pltpu.VMEM((cap, br, C), jnp.float32),
-        pltpu.VMEM((cap, br, C), jnp.float32),
-    ]
-    if symmetric:
-        scratch += [
-            pltpu.VMEM((cap, 1, C), jnp.float32),
-            pltpu.VMEM((cap, 1, C), jnp.float32),
-        ]
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
+    nin = 5 + len(extra)
     out = pl.pallas_call(
         kernel,
-        grid=(R // br,),
-        in_specs=[main, top, bot] * 2 + [spec] * 2
-        + [gspec] * (2 if has_gcol else 1),
-        out_specs=[spec] * 4 + [gspec],
+        grid=(pl.cdiv(R, br), pl.cdiv(C, bc)),
+        in_specs=[any_spec] * nin,
+        out_specs=[any_spec] * 5,
         out_shape=[jax.ShapeDtypeStruct((cap, R, C), jnp.float32)] * 4
         + [jax.ShapeDtypeStruct((R, C), jnp.float32)],
-        scratch_shapes=scratch,
         interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=R * C * cap * cap * (5 if symmetric else 9) * 14,
-            bytes_accessed=R * C * cap * 4 * 12,
-            transcendentals=R * C * cap * cap * (5 if symmetric else 9),
-        ),
-    )(xe, xe, xe, ye, ye, ye, vx, vy, grow, *extra_in)
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        name="grid_step",
+    )(xl, yl, vx, vy, row0, *extra)
     return tuple(out)

@@ -2,7 +2,7 @@
 
 The reference keeps an array-of-structs ``particle_t {x,y,vx,vy,ax,ay}``
 (part1/common.h:14-21; part2/common.h:17-25 prepends a ``uint64_t id``).
-On TPU the natural layout is structure-of-arrays: one ``(N, 2)`` array per
+On an accelerator the natural layout is structure-of-arrays: one ``(N, 2)`` array per
 quantity, so every physics op is a dense vector op over lanes.
 
 Accelerations are *not* carried in the state: the reference zeroes them at the

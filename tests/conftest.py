@@ -2,8 +2,8 @@
 
 The reference could only test its MPI engine on a real SLURM cluster
 (part2/job-mpi); here the sharded engine's collectives run on XLA's forced
-host-platform device mesh so the full multi-chip code path is exercised in
-CI with no TPU attached (SURVEY.md §4).
+host-platform device mesh so the full multi-device code path is exercised
+in CI with no accelerator attached (SURVEY.md §4).
 """
 
 import os
@@ -36,7 +36,7 @@ def grid_test_config():
 
 @pytest.fixture
 def tiny_grid_config():
-    # Tiny n + capacity keep interpret-mode Mosaic kernels cheap enough for
+    # Tiny n + capacity keep the interpreted step kernel cheap enough for
     # the FAST suite: the 2-minute gate must exercise the flagship engines
     # too, not only the sort-binned ones.
     return SimConfig(

@@ -73,7 +73,7 @@ def test_pallas_interpret_matches_grid(grid_test_config):
     cfg = grid_test_config
     state = init_particles(cfg, seed=42, method="reference")
     s1 = get_engine("grid", cfg).step_state(state)
-    s2 = get_engine("pallas", cfg).step_state(state)  # interpret mode on CPU
+    s2 = get_engine("pallas", cfg, interpret=True).step_state(state)
     np.testing.assert_allclose(np.asarray(s1.pos), np.asarray(s2.pos), atol=1e-7)
 
 
@@ -107,13 +107,13 @@ def test_sharded_far_mover_converges_not_dropped():
 
 
 def test_pallas_interpret_one_step_fast(tiny_grid_config):
-    """Fast-suite flagship coverage: tiny-config Mosaic step (interpret mode)
+    """Fast-suite flagship coverage: tiny-config Triton step (interpret mode)
     against the XLA twin. The heavyweight full-config parity runs stay in the
     slow suite; this catches kernel regressions inside the 2-minute gate."""
     cfg = tiny_grid_config
     state = init_particles(cfg, seed=42, method="reference")
     s1 = get_engine("grid", cfg).step_state(state)
-    s2 = get_engine("pallas", cfg).step_state(state)
+    s2 = get_engine("pallas", cfg, interpret=True).step_state(state)
     np.testing.assert_allclose(np.asarray(s1.pos), np.asarray(s2.pos), atol=1e-7)
 
 
@@ -127,7 +127,7 @@ def test_sharded_grid_two_device_fast(tiny_grid_config):
     cfg = tiny_grid_config
     state = init_particles(cfg, seed=42, method="reference")
     r1 = get_engine("grid", cfg).run(state, nsteps=8)
-    eng = ShardedGridEngine(cfg, devices=jax.devices()[:2])
+    eng = ShardedGridEngine(cfg, devices=jax.devices()[:2], interpret=True)
     r2 = eng.run(state, nsteps=8)
     np.testing.assert_allclose(
         np.asarray(r1.state.pos), np.asarray(r2.state.pos), atol=2e-6
@@ -254,13 +254,14 @@ def test_chunked_timed_run_matches_monolithic(grid_test_config):
 
 
 def test_axes_rebin_mode_engine_parity(tiny_grid_config):
-    """grid_rebin_mode='axes' end-to-end: the Mosaic (interpret) engine must
+    """grid_rebin_mode='axes' end-to-end: the kernel (interpret) engine must
     stay bit-exact with the XLA twin across several rebin rounds, and the
     axes trajectory must match dirs9 to f32 summation order."""
     cfg = dataclasses.replace(tiny_grid_config, grid_rebin_mode="axes")
     state = init_particles(cfg, seed=42, method="reference")
     ga = get_engine("grid", cfg).run(state, nsteps=12, savefreq=0)
-    pa = get_engine("pallas", cfg).run(state, nsteps=12, savefreq=0)
+    pa = get_engine("pallas", cfg, interpret=True).run(state, nsteps=12,
+                                                       savefreq=0)
     np.testing.assert_array_equal(np.asarray(ga.state.pos),
                                   np.asarray(pa.state.pos))
     ga.check(cfg, capacity=cfg.grid_capacity)

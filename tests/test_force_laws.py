@@ -58,12 +58,12 @@ def test_lj_dynamics_bounded():
 
 
 def test_lj_pallas_interpret_matches_grid(tiny_grid_config):
-    """The force-law seam extends through the Mosaic kernels: LJ in
+    """The force-law seam extends through the Triton kernel: LJ in
     ops/pallas_grid._pair_coef against the XLA twin (interpret mode)."""
     cfg = tiny_grid_config.with_(force_law="lj", dt=1e-4)
     st = init_particles(cfg, seed=42, method="reference")
     s1 = get_engine("grid", cfg).step_state(st)
-    s2 = get_engine("pallas", cfg).step_state(st)
+    s2 = get_engine("pallas", cfg, interpret=True).step_state(st)
     np.testing.assert_allclose(np.asarray(s1.pos), np.asarray(s2.pos), atol=1e-7)
 
 
@@ -76,7 +76,8 @@ def test_lj_sharded_grid_two_device(tiny_grid_config):
     cfg = tiny_grid_config.with_(force_law="lj", dt=1e-4)
     st = init_particles(cfg, seed=42, method="reference")
     r1 = get_engine("grid", cfg).run(st, nsteps=8)
-    r2 = ShardedGridEngine(cfg, devices=jax.devices()[:2]).run(st, nsteps=8)
+    r2 = ShardedGridEngine(cfg, devices=jax.devices()[:2],
+                           interpret=True).run(st, nsteps=8)
     np.testing.assert_allclose(
         np.asarray(r1.state.pos), np.asarray(r2.state.pos), atol=2e-6
     )

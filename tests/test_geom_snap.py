@@ -50,12 +50,11 @@ def test_snap_chooser_invariants(n):
 
 
 def test_snap_chooser_picks_are_the_validated_winners():
-    """Regression pin: the chooser must reproduce the A/B-validated picks
-    (bench/results_tpu.jsonl "ab":"grid_geometry" rows). In particular the
-    near-tie at 20.97M must break toward the measured cap-14 winner (927M
-    p-s/s, 0 dropped), not the model's 0.7%-cheaper cap-17 shape, and the
-    two shapes that DROPPED particles (16.38M 1280^2/cap16, 20.97M
-    1536^2/cap15) must never be chosen."""
+    """Regression pin: the chooser must reproduce the validated picks of
+    the recorded geometry runs. In particular the near-tie at 20.97M must
+    break toward the cap-14 pick (0 dropped), not the model's 0.7%-cheaper
+    cap-17 shape, and the two shapes that DROPPED particles (16.38M
+    1280^2/cap16, 20.97M 1536^2/cap15) must never be chosen."""
     expect = {
         1_048_576: (384, 14),
         4_194_304: (640, 17),

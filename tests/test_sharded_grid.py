@@ -13,7 +13,7 @@ def test_sharded_grid_matches_grid(grid_test_config):
     cfg = grid_test_config
     st = init_particles(cfg, seed=42, method="reference")
     r1 = get_engine("grid", cfg).run(st, nsteps=24)
-    r2 = get_engine("sharded_grid", cfg).run(st, nsteps=24)
+    r2 = get_engine("sharded_grid", cfg, interpret=True).run(st, nsteps=24)
     np.testing.assert_allclose(
         np.asarray(r1.state.pos), np.asarray(r2.state.pos), atol=2e-6
     )
@@ -31,9 +31,8 @@ def test_sharded_grid_saved_run_matches_grid(tiny_grid_config):
     cfg = tiny_grid_config
     st = init_particles(cfg, seed=42, method="reference")
     r1 = get_engine("grid", cfg).run(st, nsteps=12, savefreq=4)
-    r2 = ShardedGridEngine(cfg, devices=jax.devices()[:2]).run(
-        st, nsteps=12, savefreq=4
-    )
+    r2 = ShardedGridEngine(cfg, devices=jax.devices()[:2],
+                           interpret=True).run(st, nsteps=12, savefreq=4)
     assert r1.frames.shape == r2.frames.shape == (3, cfg.num_parts, 2)
     np.testing.assert_allclose(r1.frames, r2.frames, atol=2e-6)
 
@@ -42,7 +41,7 @@ def test_sharded_grid_xla_impl_matches_grid(grid_test_config):
     """The XLA-twin impl (ghost-row extension + single-chip twin ops per
     shard) must track the single-chip grid engine through rebins with
     cross-shard migration. This impl is what CPU-mesh scaling benchmarks
-    run (interpret-mode Mosaic is ~1000x off at benchmark sizes)."""
+    run (the interpreted kernel is far too slow at benchmark sizes)."""
     import jax
 
     from ppsim_tpu.engines.sharded_grid import ShardedGridEngine
@@ -78,7 +77,7 @@ def test_sharded_grid_conserves_particles_long_run(grid_test_config):
     particle must stay accounted for exactly once."""
     cfg = grid_test_config
     st = init_particles(cfg, seed=7, method="fast")
-    eng = get_engine("sharded_grid", cfg)
+    eng = get_engine("sharded_grid", cfg, interpret=True)
     res = eng.run(st, nsteps=120)
     eng.check(res)
     pos = np.asarray(res.state.pos)
@@ -110,8 +109,8 @@ def test_chunked_saved_run_matches_unchunked(tiny_grid_config):
 
 def test_sharded_grid_axes_mode_matches_grid(tiny_grid_config):
     """grid_rebin_mode='axes' across strips: both impls (XLA extension and
-    the fused Mosaic kernel with asymmetric field ghosts) must track the
-    single-chip axes engine through rebins, with identical monitors."""
+    the Triton step kernel with ghost rows) must track the single-chip axes
+    engine through rebins, with identical monitors."""
     import dataclasses
 
     import jax
@@ -122,9 +121,8 @@ def test_sharded_grid_axes_mode_matches_grid(tiny_grid_config):
     st = init_particles(cfg, seed=42, method="reference")
     ref = get_engine("grid", cfg).run(st, nsteps=12, savefreq=0)
     for impl in ("xla", "pallas"):
-        res = ShardedGridEngine(cfg, devices=jax.devices()[:2], impl=impl).run(
-            st, nsteps=12, savefreq=0
-        )
+        res = ShardedGridEngine(cfg, devices=jax.devices()[:2], impl=impl,
+                                interpret=True).run(st, nsteps=12, savefreq=0)
         np.testing.assert_allclose(
             np.asarray(ref.state.pos), np.asarray(res.state.pos), atol=2e-6,
             err_msg=impl,
@@ -141,7 +139,7 @@ def test_sharded_grid_axes_conserves_particles_long_run(grid_test_config):
 
     cfg = dataclasses.replace(grid_test_config, grid_rebin_mode="axes")
     st = init_particles(cfg, seed=7, method="fast")
-    eng = get_engine("sharded_grid", cfg)
+    eng = get_engine("sharded_grid", cfg, interpret=True)
     res = eng.run(st, nsteps=120)
     eng.check(res)
     pos = np.asarray(res.state.pos)
